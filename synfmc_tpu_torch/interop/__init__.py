@@ -1,0 +1,1 @@
+"""interop of the PyTorch port (see the package docstring)."""
