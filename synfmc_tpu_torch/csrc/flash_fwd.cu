@@ -14,170 +14,236 @@
 // shared memory with an online softmax (running max and sum in fp32).
 //
 // bf16: one block per (q-tile of 64 rows, head, batch row), 4 warps of 16
-// query rows each.  QK^T and PV run on the tensor cores through WMMA
-// 16x16x16 bf16 fragments with fp32 accumulation; the head dim is padded
-// with zeros to a multiple of 16 in shared memory (40 -> 48), so any D that
-// is a multiple of 8 up to 256 works.  The O accumulator lives in shared
-// memory so that the per-row rescale by exp(m_old - m_new) is a plain
-// elementwise pass (WMMA fragments have no documented element layout).
-// Loads and stores are 16-byte vectors of the packed rows.
+// query rows each, FlashAttention-2 style on mma.sync m16n8k16 (bf16 in,
+// fp32 accumulate), whose fragment layout is documented, so:
+//   - S = Q K^T and the O accumulator stay in registers; a row's 64 logits
+//     sit in the 4 lanes of a quad, so the row max and sum take 2 shuffles;
+//   - P goes from the S accumulators straight into the A operand of PV;
+//   - Q, K and V reach the tensor cores through ldmatrix (.trans for V)
+//     from shared rows padded by 16 bytes against bank conflicts;
+//   - K/V tiles of 64 keys are double-buffered with cp.async, the next
+//     tile's copy overlapping this tile's math.
+// The head dim is padded with zeros to a multiple of 16 (40 -> 48) and is a
+// template parameter, so any D that is a multiple of 8 up to 256 works.
 //
 // fp32: a CUDA-core kernel (one thread per query row, K/V tiles in shared
 // memory) with the same online softmax, for exact float32 checks.
-#include <mma.h>
-
 #include "common.cuh"
-
-using namespace nvcuda;
 
 namespace {
 
-constexpr int BQ = 64;
-constexpr int BK = 64;
+constexpr int BQ = 64;   // query rows per block: 4 warps x 16
+constexpr int BK = 64;   // keys per K/V tile
 constexpr int kWarps = BQ / 16;
 
-struct Smem {
-  int Dp;
-  __host__ __device__ size_t q_off() const { return 0; }
-  __host__ __device__ size_t k_off() const { return q_off() + (size_t)BQ * Dp * 2; }
-  __host__ __device__ size_t v_off() const { return k_off() + (size_t)BK * Dp * 2; }
-  __host__ __device__ size_t s_off() const { return v_off() + (size_t)BK * Dp * 2; }
-  __host__ __device__ size_t p_off() const { return s_off() + (size_t)BQ * BK * 4; }
-  __host__ __device__ size_t o_off() const { return p_off() + (size_t)BQ * BK * 2; }
-  __host__ __device__ size_t bytes() const { return o_off() + (size_t)BQ * Dp * 4; }
-};
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
 
-// rows [row0, row0 + nrows) of one head slice -> shared [nrows][Dp], zero
-// padded past S and past D; q rows are multiplied by `scale` in bf16.
-__device__ inline void load_tile(const __nv_bfloat16* __restrict__ src, __nv_bfloat16* dst,
-                                 int row0, int nrows, int S, int C, int col0, int D, int Dp,
-                                 bool apply_scale, float scale) {
-  const int vpr = Dp / 8;  // 16-byte vectors per shared row
-  for (int e = threadIdx.x; e < nrows * vpr; e += blockDim.x) {
-    const int r = e / vpr, dv = e % vpr;
+// Four 8x8 b16 matrices from shared memory; lane l supplies the row address
+// of matrix l / 8 and receives row l / 4, columns 2*(l % 4) and +1 of each.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// The same, transposed: lane l receives rows 2*(l % 4) and +1 of column l / 4.
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// c (16x8 fp32) += a (16x16 bf16, row) * b (16x8 bf16, col).  Fragment
+// layout (PTX ISA, mma.m16n8k16): with g = lane / 4, t = lane % 4, a holds
+// rows g / g+8 x columns 2t, 2t+1 (+8); b holds rows 2t, 2t+1 (+8) x column g;
+// c holds rows g (c0, c1) and g+8 (c2, c3) x columns 2t, 2t+1.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 16-byte asynchronous copy; zero-fills the destination when !valid.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n"); }
+template <int N> __device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Shared row stride: DP + 8 elements keeps rows 16-byte aligned and puts the
+// 8 rows an ldmatrix reads on distinct banks.
+template <int DP> __host__ __device__ constexpr int lds() { return DP + 8; }
+
+// rows [row0, row0 + BK) of one head slice -> shared [BK][lds], zero past S and D.
+template <int DP>
+__device__ __forceinline__ void load_kv(const __nv_bfloat16* __restrict__ src,
+                                        __nv_bfloat16* dst, int row0, int S, int C, int col0,
+                                        int D) {
+  constexpr int VPR = DP / 8;
+  for (int e = threadIdx.x; e < BK * VPR; e += blockDim.x) {
+    const int r = e / VPR, dv = e % VPR;
     const int row = row0 + r;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row < S && dv * 8 < D) {
-      val = *reinterpret_cast<const uint4*>(src + (size_t)row * C + col0 + dv * 8);
-      if (apply_scale) {
-        __nv_bfloat16* el = reinterpret_cast<__nv_bfloat16*>(&val);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) el[j] = __float2bfloat16(__bfloat162float(el[j]) * scale);
-      }
-    }
-    *reinterpret_cast<uint4*>(dst + (size_t)r * Dp + dv * 8) = val;
+    const bool ok = row < S && dv * 8 < D;
+    cp_async16(dst + r * lds<DP>() + dv * 8, ok ? src + (size_t)row * C + col0 + dv * 8 : src,
+               ok);
   }
 }
 
+template <int DP>
 __global__ void __launch_bounds__(kWarps * 32)
     flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int S,
-                   int H, int D, int Dp, float scale) {
+                   int H, int D, float scale) {
+  constexpr int LDS = lds<DP>();
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const Smem L{Dp};
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw + L.q_off());
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw + L.k_off());
-  __nv_bfloat16* Vs = reinterpret_cast<__nv_bfloat16*>(smem_raw + L.v_off());
-  float* Ss = reinterpret_cast<float*>(smem_raw + L.s_off());
-  __nv_bfloat16* Ps = reinterpret_cast<__nv_bfloat16*>(smem_raw + L.p_off());
-  float* Os = reinterpret_cast<float*>(smem_raw + L.o_off());
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BQ][LDS]
+  __nv_bfloat16* Ks = Qs + BQ * LDS;                                // [2][BK][LDS]
+  __nv_bfloat16* Vs = Ks + 2 * BK * LDS;                            // [2][BK][LDS]
 
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int C = H * D;
   const size_t base = (size_t)b * S * C;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int nk = cdiv(S, BK);
 
-  load_tile(q + base, Qs, q0, BQ, S, C, h * D, D, Dp, true, scale);
-  for (int e = threadIdx.x; e < BQ * Dp; e += blockDim.x) Os[e] = 0.f;
-
-  // running max / sum of the warp's 16 rows, replicated in every lane
-  float m_run[16], l_run[16];
+  load_kv<DP>(k + base, Ks, 0, S, C, h * D, D);
+  load_kv<DP>(v + base, Vs, 0, S, C, h * D, D);
+  cp_commit();
+  // Q tile, multiplied by the scale in bf16 as the TPU kernel does
+  for (int e = threadIdx.x; e < BQ * (DP / 8); e += blockDim.x) {
+    const int r = e / (DP / 8), dv = e % (DP / 8);
+    const int row = q0 + r;
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (row < S && dv * 8 < D) {
+      val = *reinterpret_cast<const uint4*>(q + base + (size_t)row * C + h * D + dv * 8);
+      __nv_bfloat16* el = reinterpret_cast<__nv_bfloat16*>(&val);
 #pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    m_run[i] = -INFINITY;
-    l_run[i] = 0.f;
+      for (int j = 0; j < 8; ++j) el[j] = __float2bfloat16(__bfloat162float(el[j]) * scale);
+    }
+    *reinterpret_cast<uint4*>(Qs + r * LDS + dv * 8) = val;
   }
 
-  for (int k0 = 0; k0 < S; k0 += BK) {
-    __syncthreads();  // previous tile fully consumed (and Q/O initialised)
-    load_tile(k + base, Ks, k0, BK, S, C, h * D, D, Dp, false, 0.f);
-    load_tile(v + base, Vs, k0, BK, S, C, h * D, D, Dp, false, 0.f);
+  float acc[DP / 8][4];
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};  // rows g, g+8
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int buf = kt & 1;
+    if (kt + 1 < nk) {  // prefetch the next tile into the other buffer
+      load_kv<DP>(k + base, Ks + (buf ^ 1) * BK * LDS, (kt + 1) * BK, S, C, h * D, D);
+      load_kv<DP>(v + base, Vs + (buf ^ 1) * BK * LDS, (kt + 1) * BK, S, C, h * D, D);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
     __syncthreads();
+    const __nv_bfloat16* Kt = Ks + buf * BK * LDS;
+    const __nv_bfloat16* Vt = Vs + buf * BK * LDS;
 
-    // S_w = Q_w K^T : 16 x BK per warp
-    for (int jn = 0; jn < BK / 16; ++jn) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-      for (int kk = 0; kk < Dp / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fa, Qs + (size_t)warp * 16 * Dp + kk * 16, Dp);
-        wmma::load_matrix_sync(fb, Ks + (size_t)jn * 16 * Dp + kk * 16, Dp);
-        wmma::mma_sync(acc, fa, fb, acc);
+    // S = Q K^T for the warp's 16 rows x BK keys, fp32 in registers
+    float s[BK / 8][4];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      uint32_t a[4];
+      ldsm_x4(a, Qs + (warp * 16 + (lane & 15)) * LDS + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int jp = 0; jp < BK / 16; ++jp) {
+        uint32_t bb[4];
+        ldsm_x4(bb, Kt + (jp * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDS + kk * 16 +
+                        ((lane >> 3) & 1) * 8);
+        mma_bf16(s[2 * jp], a, bb[0], bb[1]);
+        mma_bf16(s[2 * jp + 1], a, bb[2], bb[3]);
       }
-      wmma::store_matrix_sync(Ss + (size_t)warp * 16 * BK + jn * 16, acc, BK,
-                              wmma::mem_row_major);
     }
-    __syncwarp();
 
-    // online softmax, one row at a time across the warp: lane owns columns
-    // lane and lane + 32 (BK == 64), so shared reads are conflict-free
+    // online softmax; a row's 64 columns live in the 4 lanes of a quad
+    float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const int r = warp * 16 + i;
-      const bool ok0 = k0 + lane < S, ok1 = k0 + lane + 32 < S;
-      const float s0 = ok0 ? Ss[r * BK + lane] : -INFINITY;
-      const float s1 = ok1 ? Ss[r * BK + lane + 32] : -INFINITY;
-      float mx = fmaxf(s0, s1);
+    for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m_run[i], mx);
-      const float alpha = __expf(m_run[i] - m_new);
-      const float p0 = ok0 ? __expf(s0 - m_new) : 0.f;
-      const float p1 = ok1 ? __expf(s1 - m_new) : 0.f;
-      Ps[r * BK + lane] = __float2bfloat16(p0);
-      Ps[r * BK + lane + 32] = __float2bfloat16(p1);
-      float sum = p0 + p1;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l_run[i] = l_run[i] * alpha + sum;
-      m_run[i] = m_new;
-      for (int d = lane; d < Dp; d += 32) Os[r * Dp + d] *= alpha;
-    }
-    __syncwarp();
-
-    // O_w += P_w V : 16 x Dp per warp
-    for (int dt = 0; dt < Dp / 16; ++dt) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      float* optr = Os + (size_t)warp * 16 * Dp + dt * 16;
-      wmma::load_matrix_sync(acc, optr, Dp, wmma::mem_row_major);
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fa, Ps + (size_t)warp * 16 * BK + kk * 16, BK);
-        wmma::load_matrix_sync(fb, Vs + (size_t)kk * 16 * Dp + dt * 16, Dp);
-        wmma::mma_sync(acc, fa, fb, acc);
+      for (int c = 0; c < 4; ++c) {
+        if (kt * BK + 8 * j + 2 * t + (c & 1) >= S) s[j][c] = -INFINITY;
+        mx[c >> 1] = fmaxf(mx[c >> 1], s[j][c]);
       }
-      wmma::store_matrix_sync(optr, acc, Dp, wmma::mem_row_major);
+    float alpha[2], rsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_run[r], mx[r]);
+      alpha[r] = __expf(m_run[r] - m_new);
+      m_run[r] = m_new;
     }
-  }
-  __syncwarp();
 #pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    const float inv = 1.f / l_run[i];
-    for (int d = lane; d < Dp; d += 32) Os[(warp * 16 + i) * Dp + d] *= inv;
-  }
-  __syncthreads();
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        s[j][c] = __expf(s[j][c] - m_run[c >> 1]);
+        rsum[c >> 1] += s[j][c];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      rsum[r] += __shfl_xor_sync(0xffffffffu, rsum[r], 1);
+      rsum[r] += __shfl_xor_sync(0xffffffffu, rsum[r], 2);
+      l_run[r] = l_run[r] * alpha[r] + rsum[r];
+    }
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
 
-  const int vpr = D / 8;
-  for (int e = threadIdx.x; e < BQ * vpr; e += blockDim.x) {
-    const int rr = e / vpr, dv = e % vpr;
-    if (q0 + rr >= S) continue;
-    uint4 pack;
-    __nv_bfloat16* el = reinterpret_cast<__nv_bfloat16*>(&pack);
+    // O += P V, with P (bf16) taken straight from the S fragments
 #pragma unroll
-    for (int j = 0; j < 8; ++j) el[j] = __float2bfloat16(Os[rr * Dp + dv * 8 + j]);
-    *reinterpret_cast<uint4*>(o + base + (size_t)(q0 + rr) * C + h * D + dv * 8) = pack;
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < DP / 16; ++dp) {
+        uint32_t bb[4];
+        ldsm_x4_t(bb, Vt + (kk * 16 + (lane & 15)) * LDS + dp * 16 + (lane >> 4) * 8);
+        mma_bf16(acc[2 * dp], a, bb[0], bb[1]);
+        mma_bf16(acc[2 * dp + 1], a, bb[2], bb[3]);
+      }
+    }
+    __syncthreads();  // the next prefetch overwrites this buffer
+  }
+
+  const float inv[2] = {1.f / l_run[0], 1.f / l_run[1]};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + warp * 16 + g + 8 * r;
+    if (row >= S) continue;
+    __nv_bfloat16* orow = o + base + (size_t)row * C + h * D;
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+      const int d = 8 * n + 2 * t;
+      if (d < D)
+        *reinterpret_cast<__nv_bfloat162*>(orow + d) =
+            __floats2bfloat162_rn(acc[n][2 * r] * inv[r], acc[n][2 * r + 1] * inv[r]);
+    }
   }
 }
 
@@ -261,18 +327,35 @@ cudaError_t set_smem(const void* fn, size_t bytes) {
 
 }  // namespace
 
+template <int DP>
+int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int S, int H, int D,
+                float scale, cudaStream_t stream) {
+  const size_t smem = (size_t)(BQ + 4 * BK) * lds<DP>() * sizeof(__nv_bfloat16);
+  cudaError_t e = set_smem((const void*)flash_fwd_bf16<DP>, smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(cdiv(S, BQ), H, B);
+  flash_fwd_bf16<DP><<<grid, kWarps * 32, smem, stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
+      (__nv_bfloat16*)o, S, H, D, scale);
+  return (int)cudaGetLastError();
+}
+
 // q, k, v, o: (B, S, H*D) contiguous, 16-byte aligned; D % 8 == 0, D <= 256.
 SYNFMC_API int synfmc_flash_fwd_bf16(const void* q, const void* k, const void* v, void* o,
                                      int B, int S, int H, int D, float scale, void* stream) {
-  const int Dp = cdiv(D, 16) * 16;
-  const size_t smem = Smem{Dp}.bytes();
-  cudaError_t e = set_smem((const void*)flash_fwd_bf16, smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid(cdiv(S, BQ), H, B);
-  flash_fwd_bf16<<<grid, kWarps * 32, smem, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (__nv_bfloat16*)o, S, H, D, Dp, scale);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (cdiv(D, 16) * 16) {  // head dim padded to the mma depth
+#define SYNFMC_CASE(DP) \
+  case DP:              \
+    return launch_bf16<DP>(q, k, v, o, B, S, H, D, scale, st);
+    SYNFMC_CASE(16) SYNFMC_CASE(32) SYNFMC_CASE(48) SYNFMC_CASE(64) SYNFMC_CASE(80)
+    SYNFMC_CASE(96) SYNFMC_CASE(112) SYNFMC_CASE(128) SYNFMC_CASE(144) SYNFMC_CASE(160)
+    SYNFMC_CASE(176) SYNFMC_CASE(192) SYNFMC_CASE(208) SYNFMC_CASE(224) SYNFMC_CASE(240)
+    SYNFMC_CASE(256)
+#undef SYNFMC_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 SYNFMC_API int synfmc_flash_fwd_f32(const void* q, const void* k, const void* v, void* o, int B,
