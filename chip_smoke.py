@@ -217,8 +217,8 @@ def kernel_case(kind, key, dtype, gen):
     sets = []
     for _ in range(2):
         x = rnd(n, s, c)
-        sets.append((x, 1 + 0.1 * torch.randn(c, generator=gen, device="cuda"),
-                     0.1 * torch.randn(c, generator=gen, device="cuda")))
+        sets.append((x, (1 + 0.1 * torch.randn(c, generator=gen, device="cuda")).to(dtype),
+                     (0.1 * torch.randn(c, generator=gen, device="cuda")).to(dtype)))
 
     def library(x, w, b):
         # (N, S, C) seen as a channels-last (N, C, S, 1) tensor: no copy

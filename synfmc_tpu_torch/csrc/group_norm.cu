@@ -11,12 +11,12 @@
 // is 12.6 M elements over only 32 groups, so a block per (sample, group)
 // would leave most of the 132 SMs idle.  Instead:
 //   1. gn_stats:    grid (chunks, N); each block reduces a run of rows of one
-//                   sample to per-group partial (sum, sumsq) in fp32, with
-//                   rows contiguous in memory so a warp reads consecutive
-//                   channels;
+//                   sample to per-group partial (sum, sumsq) in fp32, a
+//                   thread summing 8 (bf16) or 4 (fp32) channels from 16-byte
+//                   loads, a warp reading consecutive addresses of a row;
 //   2. gn_finalize: grid N; sums the partials, computes mean/rstd per group
 //                   and the folded per-channel (gamma, beta);
-//   3. gn_apply:    grid-stride elementwise x * gamma + beta (+act).
+//   3. gn_apply:    grid-stride x * gamma + beta (+act) over 16-byte vectors.
 // Any C with C % G == 0 is taken: group widths on the UNet path are 10..80
 // channels, so groups are reduced from a per-channel shared-memory buffer
 // rather than by power-of-two tiles.
@@ -36,24 +36,48 @@ __global__ void gn_stats(const T* __restrict__ x, float* __restrict__ part, int 
   const T* xn = x + (size_t)n * S * C;
   for (int c = threadIdx.x; c < 2 * C; c += blockDim.x) sh[c] = 0.f;
   __syncthreads();
-  // width consecutive channels x lanes row-lanes; thread (l, c) reads
-  // x[r*C + c] for rows r = r0 + l, r0 + l + lanes, ...
-  const int width = min(C, (int)blockDim.x);
+  // Each thread owns VE consecutive channels (one 16-byte load per row) when
+  // C allows, else one channel; `width` channel groups x `lanes` row-lanes,
+  // so a warp reads consecutive addresses of a row.
+  constexpr int VE = 16 / sizeof(T);
+  const int ve = (C % VE == 0) ? VE : 1;
+  const int nvec = C / ve;
+  const int width = min(nvec, (int)blockDim.x);
   const int lanes = max(1, (int)blockDim.x / width);
   const int l = threadIdx.x / width;
   const int cl = threadIdx.x % width;
   if (l < lanes) {
-    for (int c0 = 0; c0 < C; c0 += width) {
-      const int c = c0 + cl;
+    for (int v0 = 0; v0 < nvec; v0 += width) {
+      const int c = (v0 + cl) * ve;
       if (c >= C) continue;
-      float s = 0.f, q = 0.f;
-      for (int r = r0 + l; r < r1; r += lanes) {
-        const float v = to_f(xn[(size_t)r * C + c]);
-        s += v;
-        q += v * v;
+      float s[VE], q[VE];
+#pragma unroll
+      for (int j = 0; j < VE; ++j) s[j] = q[j] = 0.f;
+      if (ve == VE) {
+        for (int r = r0 + l; r < r1; r += lanes) {
+          uint4 pack = *reinterpret_cast<const uint4*>(xn + (size_t)r * C + c);
+          const T* el = reinterpret_cast<const T*>(&pack);
+#pragma unroll
+          for (int j = 0; j < VE; ++j) {
+            const float v = to_f(el[j]);
+            s[j] += v;
+            q[j] += v * v;
+          }
+        }
+      } else {
+        for (int r = r0 + l; r < r1; r += lanes) {
+          const float v = to_f(xn[(size_t)r * C + c]);
+          s[0] += v;
+          q[0] += v * v;
+        }
       }
-      atomicAdd(&sh[c], s);
-      atomicAdd(&sh[C + c], q);
+#pragma unroll
+      for (int j = 0; j < VE; ++j) {
+        if (j < ve) {
+          atomicAdd(&sh[c + j], s[j]);
+          atomicAdd(&sh[C + c + j], q[j]);
+        }
+      }
     }
   }
   __syncthreads();
@@ -70,9 +94,10 @@ __global__ void gn_stats(const T* __restrict__ x, float* __restrict__ part, int 
   }
 }
 
-__global__ void gn_finalize(const float* __restrict__ part, const float* __restrict__ scale,
-                            const float* __restrict__ bias, float* __restrict__ coef, int S,
-                            int C, int G, int chunks, float eps) {
+template <typename T>
+__global__ void gn_finalize(const float* __restrict__ part, const T* __restrict__ scale,
+                            const T* __restrict__ bias, float* __restrict__ coef, int S, int C,
+                            int G, int chunks, float eps) {
   extern __shared__ float sh[];  // [2 * G]: mean, rstd
   const int n = blockIdx.x;
   const int cg = C / G;
@@ -92,30 +117,56 @@ __global__ void gn_finalize(const float* __restrict__ part, const float* __restr
   __syncthreads();
   for (int c = threadIdx.x; c < C; c += blockDim.x) {
     const int g = c / cg;
-    const float gamma = scale[c] * sh[G + g];
+    const float gamma = to_f(scale[c]) * sh[G + g];
     float* o = coef + ((size_t)n * C + c) * 2;
     o[0] = gamma;
-    o[1] = bias[c] - sh[g] * gamma;
+    o[1] = to_f(bias[c]) - sh[g] * gamma;
   }
 }
 
+// grid (blocks, N): 16-byte vectors of one sample; C % (16 / sizeof(T)) == 0
+// keeps a vector inside one row, so its channel index is computed once.
 template <typename T>
 __global__ void gn_apply(const T* __restrict__ x, const float* __restrict__ coef,
-                         T* __restrict__ out, size_t total, int SC, int C, int act) {
-  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
-       e += (size_t)gridDim.x * blockDim.x) {
-    const size_t n = e / SC;
-    const int c = (int)(e % C);
-    const float* k = coef + (n * C + c) * 2;
-    float v = to_f(x[e]) * k[0] + k[1];
+                         T* __restrict__ out, int SC, int C, int act) {
+  constexpr int VE = 16 / sizeof(T);
+  const int n = blockIdx.y;
+  const T* xn = x + (size_t)n * SC;
+  T* on = out + (size_t)n * SC;
+  const float2* kn = reinterpret_cast<const float2*>(coef) + (size_t)n * C;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < SC / VE; i += gridDim.x * blockDim.x) {
+    const int c0 = (i * VE) % C;
+    uint4 pack = *reinterpret_cast<const uint4*>(xn + (size_t)i * VE);
+    T* el = reinterpret_cast<T*>(&pack);
+#pragma unroll
+    for (int j = 0; j < VE; ++j) {
+      const float2 k = kn[c0 + j];
+      float v = to_f(el[j]) * k.x + k.y;
+      if (act == 1) v = v / (1.f + __expf(-v));
+      else if (act == 2) v = fmaxf(v, 0.f);
+      el[j] = from_f<T>(v);
+    }
+    *reinterpret_cast<uint4*>(on + (size_t)i * VE) = pack;
+  }
+}
+
+// scalar variant for C not a multiple of the vector width
+template <typename T>
+__global__ void gn_apply_scalar(const T* __restrict__ x, const float* __restrict__ coef,
+                                T* __restrict__ out, int SC, int C, int act) {
+  const int n = blockIdx.y;
+  const float2* kn = reinterpret_cast<const float2*>(coef) + (size_t)n * C;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < SC; i += gridDim.x * blockDim.x) {
+    const float2 k = kn[i % C];
+    float v = to_f(x[(size_t)n * SC + i]) * k.x + k.y;
     if (act == 1) v = v / (1.f + __expf(-v));
     else if (act == 2) v = fmaxf(v, 0.f);
-    out[e] = from_f<T>(v);
+    out[(size_t)n * SC + i] = from_f<T>(v);
   }
 }
 
 template <typename T>
-int launch(const void* x, const float* scale, const float* bias, void* out, float* work,
+int launch(const void* x, const void* scale, const void* bias, void* out, float* work,
            int N, int S, int C, int G, float eps, int act, int chunks, cudaStream_t stream) {
   const int rows_per_chunk = cdiv(S, chunks);
   chunks = cdiv(S, rows_per_chunk);
@@ -123,28 +174,33 @@ int launch(const void* x, const float* scale, const float* bias, void* out, floa
   float* coef = work + (size_t)N * chunks * G * 2;     // [N, C, 2]
   gn_stats<T><<<dim3(chunks, N), kThreads, 2 * C * sizeof(float), stream>>>(
       (const T*)x, part, S, C, G, rows_per_chunk, chunks);
-  gn_finalize<<<N, kThreads, 2 * G * sizeof(float), stream>>>(part, scale, bias, coef, S, C,
-                                                                G, chunks, eps);
-  const size_t total = (size_t)N * S * C;
-  const size_t want = (total + kThreads - 1) / kThreads;
-  const int blocks = (int)(want < 132 * 16 ? want : 132 * 16);
-  gn_apply<T><<<blocks, kThreads, 0, stream>>>((const T*)x, coef, (T*)out, total, S * C, C,
-                                               act);
+  gn_finalize<T><<<N, kThreads, 2 * G * sizeof(float), stream>>>(
+      part, (const T*)scale, (const T*)bias, coef, S, C, G, chunks, eps);
+  const bool vec = C % (16 / (int)sizeof(T)) == 0;
+  const int items = vec ? S * C / (16 / (int)sizeof(T)) : S * C;
+  const int blocks = max(1, min(cdiv(items, kThreads), cdiv(132 * 16, N)));
+  if (vec)
+    gn_apply<T><<<dim3(blocks, N), kThreads, 0, stream>>>((const T*)x, coef, (T*)out, S * C, C,
+                                                          act);
+  else
+    gn_apply_scalar<T><<<dim3(blocks, N), kThreads, 0, stream>>>((const T*)x, coef, (T*)out,
+                                                                 S * C, C, act);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// work: fp32 scratch of gn_work_floats(N, C, G, chunks) elements.
-// act: 0 none, 1 silu, 2 relu.
-SYNFMC_API int synfmc_group_norm_bf16(const void* x, const float* scale, const float* bias,
+// x, out: (N, S, C) contiguous, 16-byte aligned, S*C < 2^31; scale, bias: (C,)
+// of x's type; work: fp32
+// scratch of N*chunks*G*2 + N*C*2 elements; act: 0 none, 1 silu, 2 relu.
+SYNFMC_API int synfmc_group_norm_bf16(const void* x, const void* scale, const void* bias,
                                       void* out, float* work, int N, int S, int C, int G,
                                       float eps, int act, int chunks, void* stream) {
   return launch<__nv_bfloat16>(x, scale, bias, out, work, N, S, C, G, eps, act, chunks,
                                (cudaStream_t)stream);
 }
 
-SYNFMC_API int synfmc_group_norm_f32(const void* x, const float* scale, const float* bias,
+SYNFMC_API int synfmc_group_norm_f32(const void* x, const void* scale, const void* bias,
                                      void* out, float* work, int N, int S, int C, int G,
                                      float eps, int act, int chunks, void* stream) {
   return launch<float>(x, scale, bias, out, work, N, S, C, G, eps, act, chunks,

@@ -64,16 +64,16 @@ def fused_group_norm(x, scale, bias, num_groups: int, eps: float = 1e-5,
         raise TypeError(f"fused_group_norm: dtype {x.dtype} not supported")
     if not x.is_contiguous():
         raise ValueError("fused_group_norm: x must be contiguous (channel-last)")
-    if c > _MAX_C:
-        raise ValueError(f"fused_group_norm: C={c} > {_MAX_C}")
     s = x.numel() // (n * c)
+    if c > _MAX_C or s * c >= 2 ** 31 or x.data_ptr() % 16:
+        raise ValueError(f"fused_group_norm: unsupported slab (S={s}, C={c}) or alignment")
     chunks = _chunks(n, s)
     chunks = -(-s // -(-s // chunks))  # the kernel's own rounding of rows per chunk
     out = torch.empty_like(x)
     work = torch.empty(n * chunks * num_groups * 2 + n * c * 2, device=x.device,
                        dtype=torch.float32)
-    sc = scale.to(device=x.device, dtype=torch.float32).contiguous()
-    bi = bias.to(device=x.device, dtype=torch.float32).contiguous()
+    sc = scale.to(device=x.device, dtype=x.dtype).contiguous()
+    bi = bias.to(device=x.device, dtype=x.dtype).contiguous()
     fn = _entry(x.dtype)
     err = fn(x.data_ptr(), sc.data_ptr(), bi.data_ptr(), out.data_ptr(), work.data_ptr(),
              n, s, c, num_groups, float(eps), _ACTS[act], chunks,

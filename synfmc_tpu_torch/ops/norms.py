@@ -24,6 +24,7 @@ def group_norm(x, scale, bias, num_groups: int, eps: float = 1e-5,
 
 
 def layer_norm(x, scale, bias, eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm over the trailing axis with fp32 statistics."""
-    out = F.layer_norm(x.float(), (x.shape[-1],), scale.float(), bias.float(), eps)
-    return out.to(x.dtype)
+    """LayerNorm over the trailing axis.  PyTorch's kernel keeps the
+    statistics and the affine in fp32 for bf16 input and rounds once at the
+    end, which is ops/norms.py:layer_norm's math without two cast passes."""
+    return F.layer_norm(x, (x.shape[-1],), scale.to(x.dtype), bias.to(x.dtype), eps)
