@@ -18,7 +18,6 @@ class DiffusionSchedule:
     alphas_cumprod: np.ndarray  # (T,) float64
     steps_offset: int = 1
     clip_sample: bool = False
-    set_alpha_to_one: bool = True
 
     @classmethod
     def from_config(cls, num_train_timesteps: int = 1000, beta_start: float = 0.00085,
@@ -51,11 +50,9 @@ class DiffusionSchedule:
         abar = self.alphas_cumprod.astype(np.float32)
         prev_t = int(t) - self.num_train_timesteps // num_inference_steps
         alpha_t = torch.tensor(abar[int(t)], dtype=torch.float32, device=sample.device)
-        if prev_t >= 0:
-            alpha_prev = abar[prev_t]
-        else:
-            alpha_prev = np.float32(1.0) if self.set_alpha_to_one else abar[0]
-        alpha_prev = torch.tensor(alpha_prev, dtype=torch.float32, device=sample.device)
+        # the final step lands on alpha 1 (diffusers' set_alpha_to_one default)
+        alpha_prev = torch.tensor(abar[prev_t] if prev_t >= 0 else 1.0, dtype=torch.float32,
+                                  device=sample.device)
         eps32 = model_eps.float()
         x32 = sample.float()
         pred_x0 = (x32 - torch.sqrt(1.0 - alpha_t) * eps32) / torch.sqrt(alpha_t)

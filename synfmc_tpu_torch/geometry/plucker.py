@@ -8,25 +8,18 @@ product can round the pose signal.
 
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 
 
-def plucker_embedding(intrinsics: torch.Tensor, c2w: torch.Tensor, height: int, width: int,
-                      flip_flag: Optional[torch.Tensor] = None) -> torch.Tensor:
+def plucker_embedding(intrinsics: torch.Tensor, c2w: torch.Tensor, height: int,
+                      width: int) -> torch.Tensor:
     """intrinsics (B, F, 4), c2w (B, F, 4, 4) -> (B, F, height, width, 6) fp32."""
     intrinsics = intrinsics.float()
     c2w = c2w.float()
     dev = c2w.device
     b, f = intrinsics.shape[:2]
-    i = (torch.arange(width, dtype=torch.float32, device=dev) + 0.5)[None, :]  # x
+    i = (torch.arange(width, dtype=torch.float32, device=dev) + 0.5)[None, None, None, :]  # x
     j = (torch.arange(height, dtype=torch.float32, device=dev) + 0.5)[:, None]  # y
-    if flip_flag is not None:
-        i_flipped = (width - 0.5 - torch.arange(width, dtype=torch.float32, device=dev))[None, :]
-        i = torch.where(flip_flag.to(dev)[:, None, None, None], i_flipped[None, None], i[None, None])
-    else:
-        i = i[None, None]
     fx, fy, cx, cy = [intrinsics[..., k][..., None, None] for k in range(4)]  # (B,F,1,1)
     shape = (b, f, height, width)
     xs = torch.broadcast_to((i - cx) / fx, shape)

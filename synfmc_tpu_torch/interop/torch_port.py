@@ -128,6 +128,6 @@ def jax_state_dict(params: Mapping, kind: str) -> dict[str, np.ndarray]:
 def load_jax_params(module: torch.nn.Module, params: Mapping, kind: str) -> torch.nn.Module:
     """Copy a JAX param tree into ``module`` with ``load_state_dict(strict=True)``;
     tensors take the module's own dtype, device and memory format."""
-    sd = {k: torch.from_numpy(v) for k, v in jax_state_dict(params, kind).items()}
+    sd = {k: torch.tensor(v) for k, v in jax_state_dict(params, kind).items()}
     module.load_state_dict(sd, strict=True)
     return module

@@ -47,8 +47,8 @@ class Attention(nn.Module):
     """
 
     def __init__(self, query_dim: int, heads: int, dim_head: int,
-                 cross_attention_dim: Optional[int] = None, out_dim: Optional[int] = None,
-                 qkv_bias: bool = False, lora_rank: int = 0, lora_scale: float = 1.0,
+                 cross_attention_dim: Optional[int] = None, lora_rank: int = 0,
+                 lora_scale: float = 1.0,
                  pose_cond: str = "none", pose_scale: float = 1.0,
                  temporal_pe_max_len: int = 0, rescale_output_factor: float = 1.0):
         super().__init__()
@@ -61,11 +61,10 @@ class Attention(nn.Module):
         self.rescale_output_factor = rescale_output_factor
         inner = heads * dim_head
         kv_dim = cross_attention_dim or query_dim
-        out_dim = out_dim or query_dim
-        self.to_q = nn.Linear(query_dim, inner, bias=qkv_bias)
-        self.to_k = nn.Linear(kv_dim, inner, bias=qkv_bias)
-        self.to_v = nn.Linear(kv_dim, inner, bias=qkv_bias)
-        self.to_out = nn.ModuleList([nn.Linear(inner, out_dim)])
+        self.to_q = nn.Linear(query_dim, inner, bias=False)
+        self.to_k = nn.Linear(kv_dim, inner, bias=False)
+        self.to_v = nn.Linear(kv_dim, inner, bias=False)
+        self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
         proc = {}
         if pose_cond != "none":
             width = kv_dim if pose_cond == "kv" else query_dim
@@ -74,7 +73,7 @@ class Attention(nn.Module):
             proc["to_q_lora"] = LoRADense(query_dim, inner, lora_rank)
             proc["to_k_lora"] = LoRADense(kv_dim, inner, lora_rank)
             proc["to_v_lora"] = LoRADense(kv_dim, inner, lora_rank)
-            proc["to_out_lora"] = LoRADense(inner, out_dim, lora_rank)
+            proc["to_out_lora"] = LoRADense(inner, query_dim, lora_rank)
         self.processor = nn.ModuleDict(proc)
         self.lora = lora_rank > 0
         if temporal_pe_max_len > 0:
@@ -145,16 +144,14 @@ class SpatialTransformer(nn.Module):
     GroupNorm -> 1x1 proj_in -> tokens -> blocks -> 1x1 proj_out -> + residual.
     Input NHWC with frames folded into the batch."""
 
-    def __init__(self, in_channels: int, heads: int, dim_head: int, depth: int = 1,
-                 cross_attention_dim: int = 768, groups: int = 32, lora_rank: int = 0,
-                 lora_scale: float = 1.0):
+    def __init__(self, in_channels: int, heads: int, dim_head: int,
+                 cross_attention_dim: int = 768, lora_rank: int = 0, lora_scale: float = 1.0):
         super().__init__()
         inner = heads * dim_head
-        self.norm = GroupNorm(in_channels, groups, eps=1e-6)
+        self.norm = GroupNorm(in_channels, 32, eps=1e-6)
         self.proj_in = Conv2d(in_channels, inner, 1)
         self.transformer_blocks = nn.ModuleList([
             BasicTransformerBlock(inner, heads, dim_head, cross_attention_dim, lora_rank, lora_scale)
-            for _ in range(depth)
         ])
         self.proj_out = Conv2d(inner, in_channels, 1)
 

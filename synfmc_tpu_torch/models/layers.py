@@ -19,16 +19,14 @@ from torch import nn
 from synfmc_tpu_torch.ops.norms import group_norm, layer_norm
 
 
-def timestep_embedding(timesteps: torch.Tensor, dim: int, flip_sin_to_cos: bool = True,
-                       freq_shift: float = 0.0, max_period: float = 10000.0) -> torch.Tensor:
-    """Sinusoidal timestep embedding (diffusers ``Timesteps``), (B,) -> (B, dim) fp32."""
+def timestep_embedding(timesteps: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sinusoidal timestep embedding (diffusers ``Timesteps`` with
+    flip_sin_to_cos, freq_shift 0, max period 1e4): (B,) -> (B, dim) fp32 [cos, sin]."""
     half = dim // 2
-    exponent = -math.log(max_period) * torch.arange(half, dtype=torch.float32,
-                                                    device=timesteps.device)
-    freqs = torch.exp(exponent / (half - freq_shift))
-    args = timesteps.float()[:, None] * freqs[None, :]
-    sin, cos = torch.sin(args), torch.cos(args)
-    emb = torch.cat([cos, sin] if flip_sin_to_cos else [sin, cos], dim=-1)
+    exponent = -math.log(10000.0) * torch.arange(half, dtype=torch.float32,
+                                                 device=timesteps.device)
+    args = timesteps.float()[:, None] * torch.exp(exponent / half)[None, :]
+    emb = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
     if dim % 2 == 1:
         emb = F.pad(emb, (0, 1))
     return emb
@@ -102,18 +100,15 @@ class ResnetBlock2D(nn.Module):
     -> conv2 -> + shortcut."""
 
     def __init__(self, in_channels: int, out_channels: int, temb_channels: Optional[int] = None,
-                 eps: float = 1e-6, groups: int = 32, output_scale_factor: float = 1.0,
-                 use_shortcut_conv: Optional[bool] = None):
+                 eps: float = 1e-6, groups: int = 32):
         super().__init__()
-        self.output_scale_factor = output_scale_factor
         self.norm1 = GroupNorm(in_channels, groups, eps, act="silu")
         self.conv1 = conv3x3(in_channels, out_channels)
         self.time_emb_proj = nn.Linear(temb_channels, out_channels) if temb_channels else None
         self.norm2 = GroupNorm(out_channels, groups, eps, act="silu")
         self.conv2 = conv3x3(out_channels, out_channels)
-        if use_shortcut_conv is None:
-            use_shortcut_conv = in_channels != out_channels
-        self.conv_shortcut = Conv2d(in_channels, out_channels, 1) if use_shortcut_conv else None
+        self.conv_shortcut = (Conv2d(in_channels, out_channels, 1)
+                              if in_channels != out_channels else None)
 
     def forward(self, x, temb=None):
         h = self.conv1(self.norm1(x))
@@ -124,10 +119,7 @@ class ResnetBlock2D(nn.Module):
         h = self.conv2(self.norm2(h))
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
-        out = x + h
-        if self.output_scale_factor != 1.0:
-            out = out / self.output_scale_factor
-        return out
+        return x + h
 
 
 class Downsample2D(nn.Module):

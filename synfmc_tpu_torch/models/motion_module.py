@@ -22,16 +22,14 @@ class TemporalTransformerBlock(nn.Module):
     def __init__(self, dim: int, num_attention_heads: int, attention_head_dim: int,
                  num_attention_blocks: int = 2, temporal_pe_max_len: int = 32,
                  pose_cond_blocks: Sequence[int] = (), pose_scale: float = 1.0,
-                 lora_rank: int = 0, lora_scale: float = 1.0,
-                 rescale_output_factor: float = 1.0):
+                 lora_rank: int = 0, lora_scale: float = 1.0):
         super().__init__()
         self.pose_cond_blocks = tuple(pose_cond_blocks)
         self.attention_blocks = nn.ModuleList([
             Attention(dim, num_attention_heads, attention_head_dim,
                       pose_cond="qkv" if i in self.pose_cond_blocks else "none",
                       pose_scale=pose_scale, lora_rank=lora_rank, lora_scale=lora_scale,
-                      temporal_pe_max_len=temporal_pe_max_len,
-                      rescale_output_factor=rescale_output_factor)
+                      temporal_pe_max_len=temporal_pe_max_len)
             for i in range(num_attention_blocks)
         ])
         self.norms = nn.ModuleList([LayerNorm(dim) for _ in range(num_attention_blocks)])
@@ -50,22 +48,20 @@ class TemporalTransformer3D(nn.Module):
 
     def __init__(self, channels: int, num_attention_heads: int = 8,
                  num_transformer_blocks: int = 1, num_attention_blocks: int = 2,
-                 attention_dim_div: int = 1, norm_num_groups: int = 32,
                  temporal_pe_max_len: int = 32, pose_cond_blocks: Sequence[int] = (),
                  pose_scale: float = 1.0, lora_rank: int = 0, lora_scale: float = 1.0):
         super().__init__()
-        inner = channels // attention_dim_div
-        self.norm = GroupNorm(channels, norm_num_groups, eps=1e-6)
-        self.proj_in = nn.Linear(channels, inner)
+        self.norm = GroupNorm(channels, 32, eps=1e-6)
+        self.proj_in = nn.Linear(channels, channels)
         self.transformer_blocks = nn.ModuleList([
             TemporalTransformerBlock(
-                inner, num_attention_heads, inner // num_attention_heads,
+                channels, num_attention_heads, channels // num_attention_heads,
                 num_attention_blocks=num_attention_blocks,
                 temporal_pe_max_len=temporal_pe_max_len, pose_cond_blocks=pose_cond_blocks,
                 pose_scale=pose_scale, lora_rank=lora_rank, lora_scale=lora_scale)
             for _ in range(num_transformer_blocks)
         ])
-        self.proj_out = nn.Linear(inner, channels)
+        self.proj_out = nn.Linear(channels, channels)
 
     def forward(self, x, pose_feature=None):
         b, f, h, w, c = x.shape

@@ -46,11 +46,11 @@ class CameraPoseEncoder(nn.Module):
     def __init__(self, downscale_factor: int = 8,
                  channels: Sequence[int] = (320, 640, 1280, 1280), nums_rb: int = 2,
                  ksize: int = 1, temporal_attention_nhead: int = 8,
-                 temporal_pe_max_len: int = 16, in_channels: int = 6):
+                 temporal_pe_max_len: int = 16):
         super().__init__()
         self.downscale_factor = downscale_factor
         chs = list(channels)
-        self.encoder_conv_in = conv3x3(in_channels * downscale_factor ** 2, chs[0])
+        self.encoder_conv_in = conv3x3(6 * downscale_factor ** 2, chs[0])  # Plücker: 6 channels
         self.encoder_down_conv_blocks = nn.ModuleList()
         self.encoder_down_attention_blocks = nn.ModuleList()
         prev = chs[0]

@@ -14,13 +14,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from synfmc_tpu_torch.models.layers import (
-    Conv2d,
-    GroupNorm,
-    TimestepEmbedding,
-    conv3x3,
-    timestep_embedding,
-)
+from synfmc_tpu_torch.models.layers import GroupNorm, TimestepEmbedding, conv3x3, timestep_embedding
 from synfmc_tpu_torch.models.unet_blocks import (
     CrossAttnDownBlock3D,
     CrossAttnUpBlock3D,
@@ -49,7 +43,7 @@ class UNet3D(nn.Module):
                  motion_module_resolutions: Sequence[int] = (1, 2, 4, 8),
                  motion_num_heads: int = 8, motion_transformer_blocks: int = 1,
                  motion_attention_blocks: int = 2, motion_pe_max_len: int = 32,
-                 motion_zero_initialize: bool = False, motion_lora_rank: int = 0,
+                 motion_lora_rank: int = 0,
                  motion_lora_scale: float = 1.0, camera_cond: bool = False,
                  decoder_add_posecond: bool = True, pose_cond_blocks: Sequence[int] = (0,),
                  pose_scale: float = 1.0, lora_rank: int = 0, lora_scale: float = 1.0,
@@ -182,7 +176,6 @@ def unet_config_from_yaml(unet_additional_kwargs: dict | None, lora_rank: int = 
         motion_attention_blocks=len(mm.get("attention_block_types",
                                            ["Temporal_Self", "Temporal_Self"])),
         motion_pe_max_len=int(mm.get("temporal_position_encoding_max_len", 32)),
-        motion_zero_initialize=bool(mm.get("zero_initialize", False)),
         lora_rank=int(lora_rank),
         lora_scale=float(lora_scale),
         camera_cond=camera_cond,

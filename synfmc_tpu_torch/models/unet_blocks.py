@@ -107,27 +107,23 @@ class DownBlock3D(nn.Module):
 
 
 class UNetMidBlock3DCrossAttn(nn.Module):
-    def __init__(self, channels: int, temb_channels: int, num_layers: int = 1,
-                 attn_heads: int = 8, cross_attention_dim: int = 768,
-                 motion: Optional[dict] = None, lora_rank: int = 0, lora_scale: float = 1.0):
+    def __init__(self, channels: int, temb_channels: int, attn_heads: int = 8,
+                 cross_attention_dim: int = 768, motion: Optional[dict] = None,
+                 lora_rank: int = 0, lora_scale: float = 1.0):
         super().__init__()
         self.resnets = nn.ModuleList([
-            ResnetBlock2D(channels, channels, temb_channels) for _ in range(num_layers + 1)])
+            ResnetBlock2D(channels, channels, temb_channels) for _ in range(2)])
         self.attentions = nn.ModuleList([
-            _spatial(channels, attn_heads, cross_attention_dim, lora_rank, lora_scale)
-            for _ in range(num_layers)])
-        self.motion_modules = nn.ModuleList(
-            [_motion(channels, motion) for _ in range(num_layers)]) if motion else None
+            _spatial(channels, attn_heads, cross_attention_dim, lora_rank, lora_scale)])
+        self.motion_modules = nn.ModuleList([_motion(channels, motion)]) if motion else None
 
     def forward(self, x, temb_rep, ctx_rep, pose_feature=None):
         f = x.shape[1]
         x = unfold(self.resnets[0](fold(x), temb_rep), f)
-        for i, attn in enumerate(self.attentions):
-            x = unfold(attn(fold(x), ctx_rep), f)
-            if self.motion_modules is not None:
-                x = self.motion_modules[i](x, pose_feature=pose_feature)
-            x = unfold(self.resnets[i + 1](fold(x), temb_rep), f)
-        return x
+        x = unfold(self.attentions[0](fold(x), ctx_rep), f)
+        if self.motion_modules is not None:
+            x = self.motion_modules[0](x, pose_feature=pose_feature)
+        return unfold(self.resnets[1](fold(x), temb_rep), f)
 
 
 class CrossAttnUpBlock3D(nn.Module):

@@ -138,15 +138,6 @@ class AutoencoderKL(nn.Module):
         mean, logvar = self.quant_conv(self.encoder(x.to(self.dtype))).chunk(2, dim=-1)
         return mean, logvar.clamp(-30.0, 20.0)
 
-    def encode(self, x, generator: Optional[torch.Generator] = None):
-        """Sampled (generator given) or mode latent, times the scaling factor."""
-        mean, logvar = self.encode_moments(x)
-        if generator is not None:
-            noise = torch.randn(mean.shape, generator=generator, device=mean.device,
-                                dtype=torch.float32).to(mean.dtype)
-            mean = mean + torch.exp(0.5 * logvar) * noise
-        return mean * self.scaling_factor
-
     def decode(self, z):
         """(N, h, w, 4) scaled latents -> (N, 8h, 8w, 3); divides the scaling factor."""
         return self.decoder(self.post_quant_conv((z / self.scaling_factor).to(self.dtype)))

@@ -29,7 +29,6 @@ NVCC_FLAGS = [
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
-build_seconds: dict[str, float] = {}
 
 
 def build_dir() -> Path:
@@ -79,19 +78,15 @@ def _start_build(name: str, nvcc: str):
 def build_all(names=SOURCES) -> dict[str, str]:
     """Compile every source whose library is missing, all ``nvcc`` runs in
     parallel.  Returns each build's compiler output (ptxas resource lines)."""
-    import time
-
     todo = [n for n in names if not lib_path(n).is_file()]
     if not todo:
         return {}
     nvcc = find_nvcc()
-    t0 = time.perf_counter()
     running = {n: _start_build(n, nvcc) for n in todo}
     logs, failed = {}, []
     for n, (proc, tmp, out) in running.items():
         text, _ = proc.communicate()
         logs[n] = text
-        build_seconds[n] = time.perf_counter() - t0
         if proc.returncode != 0:
             failed.append(n)
             tmp.unlink(missing_ok=True)

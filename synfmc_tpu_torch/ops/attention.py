@@ -19,7 +19,6 @@ Layout: (batch, seq, heads, head_dim).
 
 from __future__ import annotations
 
-import os
 from typing import Optional
 
 import torch
@@ -54,12 +53,11 @@ def route(q, k, mask=None, use_flash="auto") -> str:
     if (
         use_flash in ("auto", True) and mask is None and q.shape[1] == k.shape[1]
         and (use_flash is True or q.shape[1] >= _FLASH_MIN_SEQ)
-        and flash_supported(q, k, k)
+        and flash_supported(q)
     ):
         return "flash"
     if (
-        os.environ.get("SYNFMC_TEMPORAL_KERNEL", "1") == "1"
-        and use_flash in ("auto", True)
+        use_flash in ("auto", True)
         and mask is None
         and q.shape[1] == k.shape[1]
         and q.shape[1] <= _TEMPORAL_MAX_SEQ

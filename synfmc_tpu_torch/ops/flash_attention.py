@@ -19,7 +19,7 @@ from synfmc_tpu_torch.ops import _cuda
 MAX_HEAD_DIM = 256
 
 
-def flash_supported(q, k, v) -> bool:
+def flash_supported(q) -> bool:
     """Shapes the kernel takes: (B, S, H, D) with D % 8 == 0 and D <= 256.
 
     The TPU gate's VMEM terms (resident K/V bytes, the 16384-token cap) do
