@@ -17,8 +17,8 @@ Phases, each raising on failure (non-zero exit):
   5. main     - the flagship cam-stage pipeline in bf16 with seeded random
                 weights answers two requests (16 frames, 256x384, guidance
                 8, 4 DDIM steps, decode) with launch counters checked.
-``--profile`` adds a torch.profiler breakdown of one UNet forward (written
-to chiprun_out/profile_step.txt as well).  The last two lines of stdout are the kernels' JSON summary and
+``--profile`` adds a torch.profiler breakdown of one UNet forward.  The last
+two lines of stdout are the kernels' JSON summary and
 {"ok": true, "device": {...}}.
 """
 
@@ -423,11 +423,8 @@ def profile_step(pipe, chs) -> dict:
            "kernels": len(kernels),
            "families_ms": {k: round(v, 3) for k, v in families.most_common()}}
     log(f"[profile] one UNet forward on the CFG pair: {json.dumps(out)}")
-    table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=25, max_name_column_width=60)
-    os.makedirs("chiprun_out", exist_ok=True)
-    with open(os.path.join("chiprun_out", "profile_step.txt"), "w") as fh:
-        fh.write(table)
-    log(table)
+    log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25,
+                                  max_name_column_width=60))
     return out
 
 

@@ -28,6 +28,7 @@ NVCC_FLAGS = [
 ]
 
 _libs: dict[str, ctypes.CDLL] = {}
+_entries: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 _lock = threading.Lock()
 
 
@@ -119,10 +120,15 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
-def declare(lib: ctypes.CDLL, fn: str, argtypes) -> ctypes._CFuncPtr:
-    f = getattr(lib, fn)
-    f.argtypes = list(argtypes)
-    f.restype = ctypes.c_int
+def entry(name: str, fn: str, argtypes) -> ctypes._CFuncPtr:
+    """C entry point ``fn`` of ``csrc/<name>.cu``, declared once per process
+    (pointers and the stream as c_void_p, returning cudaError_t)."""
+    f = _entries.get((name, fn))
+    if f is None:
+        f = getattr(load(name), fn)
+        f.argtypes = list(argtypes)
+        f.restype = ctypes.c_int
+        _entries[(name, fn)] = f
     return f
 
 

@@ -74,7 +74,9 @@ def fused_group_norm(x, scale, bias, num_groups: int, eps: float = 1e-5,
                        dtype=torch.float32)
     sc = scale.to(device=x.device, dtype=x.dtype).contiguous()
     bi = bias.to(device=x.device, dtype=x.dtype).contiguous()
-    fn = _entry(x.dtype)
+    name = "synfmc_group_norm_bf16" if x.dtype == torch.bfloat16 else "synfmc_group_norm_f32"
+    P, I, F32 = _cuda.P, _cuda.I, _cuda.F32
+    fn = _cuda.entry("group_norm", name, [P, P, P, P, P, I, I, I, I, F32, I, I, P])
     err = fn(x.data_ptr(), sc.data_ptr(), bi.data_ptr(), out.data_ptr(), work.data_ptr(),
              n, s, c, num_groups, float(eps), _ACTS[act], chunks,
              torch.cuda.current_stream(x.device).cuda_stream)
@@ -84,10 +86,3 @@ def fused_group_norm(x, scale, bias, num_groups: int, eps: float = 1e-5,
 
 
 fused_group_norm.launches = 0
-
-
-def _entry(dtype):
-    lib = _cuda.load("group_norm")
-    name = "synfmc_group_norm_bf16" if dtype == torch.bfloat16 else "synfmc_group_norm_f32"
-    P, I, F32 = _cuda.P, _cuda.I, _cuda.F32
-    return _cuda.declare(lib, name, [P, P, P, P, P, I, I, I, I, F32, I, I, P])
