@@ -83,7 +83,7 @@ class Attention(nn.Module):
         else:
             self.pe = None
 
-    def forward(self, hidden_states, encoder_hidden_states=None, pose_feature=None, mask=None):
+    def forward(self, hidden_states, encoder_hidden_states=None, pose_feature=None):
         b, seq, _ = hidden_states.shape
         if self.pe is not None:
             hidden_states = hidden_states + self.pe[None, :seq].to(hidden_states.dtype)
@@ -109,7 +109,7 @@ class Attention(nn.Module):
         q = q.reshape(b, seq, self.heads, self.dim_head)
         k = k.reshape(b, -1, self.heads, self.dim_head)
         v = v.reshape(b, -1, self.heads, self.dim_head)
-        attn = dot_product_attention(q, k, v, scale=self.dim_head ** -0.5, mask=mask)
+        attn = dot_product_attention(q, k, v, scale=self.dim_head ** -0.5)
         attn = attn.reshape(b, seq, self.heads * self.dim_head)
         out = self.to_out[0](attn)
         if self.lora:

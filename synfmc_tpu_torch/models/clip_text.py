@@ -12,6 +12,8 @@ from torch import nn
 from synfmc_tpu_torch.models.layers import LayerNorm
 from synfmc_tpu_torch.ops.attention import dot_product_attention
 
+MAX_POSITIONS = 77
+
 
 def quick_gelu(x):
     return x * torch.sigmoid(1.702 * x)
@@ -32,7 +34,7 @@ class CLIPAttention(nn.Module):
         q = self.q_proj(x).reshape(b, s, self.heads, d)
         k = self.k_proj(x).reshape(b, s, self.heads, d)
         v = self.v_proj(x).reshape(b, s, self.heads, d)
-        out = dot_product_attention(q, k, v, scale=d ** -0.5, mask=mask, use_flash=False)
+        out = dot_product_attention(q, k, v, scale=d ** -0.5, mask=mask)
         return self.out_proj(out.reshape(b, s, c))
 
 
@@ -60,10 +62,10 @@ class CLIPEncoderLayer(nn.Module):
 
 
 class _Embeddings(nn.Module):
-    def __init__(self, vocab_size: int, hidden: int, max_positions: int):
+    def __init__(self, vocab_size: int, hidden: int):
         super().__init__()
         self.token_embedding = nn.Embedding(vocab_size, hidden)
-        self.position_embedding = nn.Embedding(max_positions, hidden)
+        self.position_embedding = nn.Embedding(MAX_POSITIONS, hidden)
 
 
 class _Encoder(nn.Module):
@@ -73,19 +75,18 @@ class _Encoder(nn.Module):
 
 
 class _TextTransformer(nn.Module):
-    def __init__(self, vocab_size, hidden, num_layers, heads, max_positions):
+    def __init__(self, vocab_size, hidden, num_layers, heads):
         super().__init__()
-        self.embeddings = _Embeddings(vocab_size, hidden, max_positions)
+        self.embeddings = _Embeddings(vocab_size, hidden)
         self.encoder = _Encoder(hidden, num_layers, heads)
         self.final_layer_norm = LayerNorm(hidden)
 
 
 class CLIPTextModel(nn.Module):
     def __init__(self, vocab_size: int = 49408, hidden_size: int = 768, num_layers: int = 12,
-                 num_heads: int = 12, max_positions: int = 77):
+                 num_heads: int = 12):
         super().__init__()
-        self.text_model = _TextTransformer(vocab_size, hidden_size, num_layers, num_heads,
-                                           max_positions)
+        self.text_model = _TextTransformer(vocab_size, hidden_size, num_layers, num_heads)
 
     def forward(self, input_ids) -> torch.Tensor:
         """(B, S) token ids -> (B, S, hidden) last_hidden_state."""

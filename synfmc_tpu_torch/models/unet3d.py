@@ -1,10 +1,11 @@
 """The inflated 3D UNet with camera (pose) and object (traj) conditioning.
 
 The full path of synfmc_tpu/models/unet3d.py:UNet3D (DeepCache's shallow
-path is not ported).  Quirk preserved: the plain 4th down block never
-receives traj features unless ``traj_on_plain_block``.  ``conv_norm_out``
-uses ``norm_eps`` (1e-5); resnet, transformer and motion GNs use 1e-6.
-Video layout (B, F, H, W, C).
+path is not ported) with the SD1.5 constants: 4 latent channels, 2 layers
+per block, GroupNorm(32).  Quirk preserved: the plain 4th down block never
+receives traj features.  The decoder's motion modules take the pose features
+too.  ``conv_norm_out`` uses eps 1e-5; resnet, transformer and motion GNs
+use 1e-6.  Video layout (B, F, H, W, C).
 """
 
 from __future__ import annotations
@@ -25,6 +26,9 @@ from synfmc_tpu_torch.models.unet_blocks import (
     unfold,
 )
 
+LATENT_CHANNELS = 4
+LAYERS_PER_BLOCK = 2
+
 
 def lora_rank_for(hidden_size: int, lora_rank_cfg: int) -> int:
     """Reference rank rule: rank = cfg if cfg > 16 else hidden // cfg."""
@@ -34,30 +38,25 @@ def lora_rank_for(hidden_size: int, lora_rank_cfg: int) -> int:
 
 
 class UNet3D(nn.Module):
-    def __init__(self, in_channels: int = 4, out_channels: int = 4,
-                 block_out_channels: Sequence[int] = (320, 640, 1280, 1280),
-                 layers_per_block: int = 2, attn_heads: int = 8,
-                 cross_attention_dim: int = 768, norm_num_groups: int = 32,
-                 norm_eps: float = 1e-5, use_motion_module: bool = False,
+    def __init__(self, block_out_channels: Sequence[int] = (320, 640, 1280, 1280),
+                 attn_heads: int = 8, cross_attention_dim: int = 768,
+                 use_motion_module: bool = False,
                  motion_module_mid_block: bool = False,
                  motion_module_resolutions: Sequence[int] = (1, 2, 4, 8),
                  motion_num_heads: int = 8, motion_transformer_blocks: int = 1,
                  motion_attention_blocks: int = 2, motion_pe_max_len: int = 32,
                  motion_lora_rank: int = 0,
                  motion_lora_scale: float = 1.0, camera_cond: bool = False,
-                 decoder_add_posecond: bool = True, pose_cond_blocks: Sequence[int] = (0,),
-                 pose_scale: float = 1.0, lora_rank: int = 0, lora_scale: float = 1.0,
-                 traj_on_plain_block: bool = False):
+                 pose_cond_blocks: Sequence[int] = (0,), pose_scale: float = 1.0,
+                 lora_rank: int = 0, lora_scale: float = 1.0):
         super().__init__()
         chs = list(block_out_channels)
         n = len(chs)
         self.block_out_channels = tuple(chs)
-        self.decoder_add_posecond = decoder_add_posecond
-        self.traj_on_plain_block = traj_on_plain_block
         temb_dim = chs[0] * 4
         pose_blocks = tuple(pose_cond_blocks) if camera_cond else ()
 
-        def motion(res: Optional[int], with_pose: bool = True):
+        def motion(res: Optional[int]):
             """Motion-module kwargs at resolution ``res`` (None: not gated by
             resolution), or None where there is no motion module."""
             if not use_motion_module or (res is not None and res not in tuple(motion_module_resolutions)):
@@ -66,12 +65,12 @@ class UNet3D(nn.Module):
                         num_transformer_blocks=motion_transformer_blocks,
                         num_attention_blocks=motion_attention_blocks,
                         temporal_pe_max_len=motion_pe_max_len,
-                        pose_cond_blocks=pose_blocks if with_pose else (),
+                        pose_cond_blocks=pose_blocks,
                         pose_scale=pose_scale, lora_rank=motion_lora_rank,
                         lora_scale=motion_lora_scale)
 
         self.time_embedding = TimestepEmbedding(chs[0], temb_dim)
-        self.conv_in = conv3x3(in_channels, chs[0])
+        self.conv_in = conv3x3(LATENT_CHANNELS, chs[0])
 
         skip_chs = [chs[0]]
         self.down_blocks = nn.ModuleList()
@@ -79,15 +78,15 @@ class UNet3D(nn.Module):
         for i, ch in enumerate(chs):
             if i < n - 1:
                 self.down_blocks.append(CrossAttnDownBlock3D(
-                    prev, ch, temb_dim, layers_per_block, attn_heads, cross_attention_dim,
+                    prev, ch, temb_dim, LAYERS_PER_BLOCK, attn_heads, cross_attention_dim,
                     add_downsample=True, motion=motion(2 ** i),
                     lora_rank=lora_rank_for(ch, lora_rank), lora_scale=lora_scale))
-                skip_chs += [ch] * (layers_per_block + 1)
+                skip_chs += [ch] * (LAYERS_PER_BLOCK + 1)
             else:
                 self.down_blocks.append(DownBlock3D(
-                    prev, ch, temb_dim, layers_per_block, add_downsample=False,
+                    prev, ch, temb_dim, LAYERS_PER_BLOCK, add_downsample=False,
                     motion=motion(2 ** i)))
-                skip_chs += [ch] * layers_per_block
+                skip_chs += [ch] * LAYERS_PER_BLOCK
             prev = ch
 
         mid_motion = motion(None) if motion_module_mid_block else None
@@ -100,8 +99,8 @@ class UNet3D(nn.Module):
         rev = list(reversed(chs))
         prev = chs[-1]
         for i, ch in enumerate(rev):
-            pops = [skip_chs.pop() for _ in range(layers_per_block + 1)]
-            mm = motion(2 ** (n - 1 - i), with_pose=decoder_add_posecond)
+            pops = [skip_chs.pop() for _ in range(LAYERS_PER_BLOCK + 1)]
+            mm = motion(2 ** (n - 1 - i))
             if i == 0:
                 self.up_blocks.append(UpBlock3D(prev, ch, pops, temb_dim,
                                                 add_upsample=i < n - 1, motion=mm))
@@ -113,8 +112,8 @@ class UNet3D(nn.Module):
             prev = ch
         assert not skip_chs
 
-        self.conv_norm_out = GroupNorm(chs[0], norm_num_groups, eps=norm_eps, act="silu")
-        self.conv_out = conv3x3(chs[0], out_channels)
+        self.conv_norm_out = GroupNorm(chs[0], 32, eps=1e-5, act="silu")
+        self.conv_out = conv3x3(chs[0], LATENT_CHANNELS)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -143,14 +142,13 @@ class UNet3D(nn.Module):
                 x, outs = blk(x, temb_rep, ctx_rep, pose_feature=pose_features[i],
                               traj_feature=traj_features[i])
             else:
-                x, outs = blk(x, temb_rep, pose_feature=pose_features[i],
-                              traj_feature=traj_features[i] if self.traj_on_plain_block else None)
+                x, outs = blk(x, temb_rep, pose_feature=pose_features[i])
             skips.extend(outs)
 
         x = self.mid_block(x, temb_rep, ctx_rep, pose_feature=pose_features[-1])
 
         for i, blk in enumerate(self.up_blocks):
-            pose = pose_features[-(i + 1)] if self.decoder_add_posecond else None
+            pose = pose_features[-(i + 1)]
             if isinstance(blk, CrossAttnUpBlock3D):
                 x = blk(x, skips, temb_rep, ctx_rep, pose_feature=pose)
             else:

@@ -89,7 +89,8 @@ class DownBlock3D(nn.Module):
         self.downsamplers = nn.ModuleList(
             [Downsample2D(out_channels, out_channels)]) if add_downsample else None
 
-    def forward(self, x, temb_rep, pose_feature=None, traj_feature=None):
+    def forward(self, x, temb_rep, pose_feature=None):
+        """Takes no traj feature: the reference's plain 4th block never adds one."""
         f = x.shape[1]
         outputs = []
         for i, res in enumerate(self.resnets):
@@ -97,9 +98,6 @@ class DownBlock3D(nn.Module):
             if self.motion_modules is not None:
                 x = self.motion_modules[i](x, pose_feature=pose_feature)
             outputs.append(x)
-        if traj_feature is not None:
-            x = x + traj_feature.to(x.dtype)
-            outputs[-1] = x
         if self.downsamplers is not None:
             x = unfold(self.downsamplers[0](fold(x)), f)
             outputs.append(x)

@@ -24,6 +24,7 @@ from synfmc_tpu_torch.models.layers import (
 from synfmc_tpu_torch.ops.attention import dot_product_attention
 
 SD_VAE_SCALING = 0.18215
+LATENT_CHANNELS = 4
 
 
 class VAEAttention(nn.Module):
@@ -78,18 +79,17 @@ class _Level(nn.Module):
 
 
 class Encoder(nn.Module):
-    def __init__(self, block_out_channels: Sequence[int] = (128, 256, 512, 512),
-                 layers_per_block: int = 2, latent_channels: int = 4):
+    def __init__(self, block_out_channels: Sequence[int] = (128, 256, 512, 512)):
         super().__init__()
         chs = list(block_out_channels)
         self.conv_in = conv3x3(3, chs[0])
         ins = [chs[0]] + chs[:-1]
         self.down_blocks = nn.ModuleList([
-            _Level(ins[i], ch, layers_per_block, "down" if i != len(chs) - 1 else None)
+            _Level(ins[i], ch, 2, "down" if i != len(chs) - 1 else None)
             for i, ch in enumerate(chs)])
         self.mid_block = VAEMidBlock(chs[-1])
         self.conv_norm_out = GroupNorm(chs[-1], 32, eps=1e-6, act="silu")
-        self.conv_out = conv3x3(chs[-1], 2 * latent_channels)
+        self.conv_out = conv3x3(chs[-1], 2 * LATENT_CHANNELS)
 
     def forward(self, x):
         x = self.conv_in(x)
@@ -99,18 +99,17 @@ class Encoder(nn.Module):
 
 
 class Decoder(nn.Module):
-    def __init__(self, block_out_channels: Sequence[int] = (128, 256, 512, 512),
-                 layers_per_block: int = 3, out_channels: int = 3, latent_channels: int = 4):
+    def __init__(self, block_out_channels: Sequence[int] = (128, 256, 512, 512)):
         super().__init__()
         rev = list(reversed(block_out_channels))
-        self.conv_in = conv3x3(latent_channels, rev[0])
+        self.conv_in = conv3x3(LATENT_CHANNELS, rev[0])
         self.mid_block = VAEMidBlock(rev[0])
         ins = [rev[0]] + rev[:-1]
         self.up_blocks = nn.ModuleList([
-            _Level(ins[i], ch, layers_per_block, "up" if i != len(rev) - 1 else None)
+            _Level(ins[i], ch, 3, "up" if i != len(rev) - 1 else None)
             for i, ch in enumerate(rev)])
         self.conv_norm_out = GroupNorm(rev[-1], 32, eps=1e-6, act="silu")
-        self.conv_out = conv3x3(rev[-1], out_channels)
+        self.conv_out = conv3x3(rev[-1], 3)
 
     def forward(self, z):
         x = self.mid_block(self.conv_in(z))
@@ -120,14 +119,12 @@ class Decoder(nn.Module):
 
 
 class AutoencoderKL(nn.Module):
-    def __init__(self, block_out_channels: Sequence[int] = (128, 256, 512, 512),
-                 latent_channels: int = 4, scaling_factor: float = SD_VAE_SCALING):
+    def __init__(self, block_out_channels: Sequence[int] = (128, 256, 512, 512)):
         super().__init__()
-        self.scaling_factor = scaling_factor
-        self.encoder = Encoder(block_out_channels, latent_channels=latent_channels)
-        self.decoder = Decoder(block_out_channels, latent_channels=latent_channels)
-        self.quant_conv = Conv2d(2 * latent_channels, 2 * latent_channels, 1)
-        self.post_quant_conv = Conv2d(latent_channels, latent_channels, 1)
+        self.encoder = Encoder(block_out_channels)
+        self.decoder = Decoder(block_out_channels)
+        self.quant_conv = Conv2d(2 * LATENT_CHANNELS, 2 * LATENT_CHANNELS, 1)
+        self.post_quant_conv = Conv2d(LATENT_CHANNELS, LATENT_CHANNELS, 1)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -140,4 +137,4 @@ class AutoencoderKL(nn.Module):
 
     def decode(self, z):
         """(N, h, w, 4) scaled latents -> (N, 8h, 8w, 3); divides the scaling factor."""
-        return self.decoder(self.post_quant_conv((z / self.scaling_factor).to(self.dtype)))
+        return self.decoder(self.post_quant_conv((z / SD_VAE_SCALING).to(self.dtype)))

@@ -46,38 +46,25 @@ def plain_attention(q, k, v, scale: float, mask=None) -> torch.Tensor:
     return out.reshape(b, h, sq, d).transpose(1, 2)
 
 
-def route(q, k, mask=None, use_flash="auto") -> str:
+def route(q, k, mask=None) -> str:
     """Which path dot_product_attention takes: 'flash', 'temporal' or 'plain'."""
-    # use_flash=True forces the kernel only where it is exact: self-attention
-    # without a mask (the TPU kernel would silently drop a mask).
-    if (
-        use_flash in ("auto", True) and mask is None and q.shape[1] == k.shape[1]
-        and (use_flash is True or q.shape[1] >= _FLASH_MIN_SEQ)
-        and flash_supported(q)
-    ):
+    if mask is not None or q.shape[1] != k.shape[1]:
+        return "plain"
+    b, s, h, d = q.shape
+    if s >= _FLASH_MIN_SEQ and flash_supported(q):
         return "flash"
-    if (
-        use_flash in ("auto", True)
-        and mask is None
-        and q.shape[1] == k.shape[1]
-        and q.shape[1] <= _TEMPORAL_MAX_SEQ
-    ):
-        b, s, h, d = q.shape
-        if temporal_supported(q.reshape(b, s, h * d), h):
-            return "temporal"
+    if s <= _TEMPORAL_MAX_SEQ and temporal_supported(q.reshape(b, s, h * d), h):
+        return "temporal"
     return "plain"
 
 
-def dot_product_attention(q, k, v, scale: Optional[float] = None, mask=None,
-                          use_flash="auto") -> torch.Tensor:
+def dot_product_attention(q, k, v, scale: Optional[float] = None, mask=None) -> torch.Tensor:
     """Multi-head scaled dot-product attention on (B, S, H, D) -> (B, Sq, H, D)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    path = route(q, k, mask, use_flash)
+    path = route(q, k, mask)
     if path == "plain":
         return plain_attention(q, k, v, scale, mask)
-    if mask is not None:
-        raise ValueError("the fused attention kernels take no mask")
     b, s, h, d = q.shape
     kernel = flash_attention if path == "flash" else temporal_attention
     out = kernel(q.reshape(b, s, h * d), k.reshape(b, s, h * d), v.reshape(b, s, h * d), scale, h)
