@@ -74,10 +74,10 @@ def flash_attention(q2, k2, v2, scale: float, heads: int) -> torch.Tensor:
     if d % 8 or d > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: head dim {d} must be a multiple of 8 <= {MAX_HEAD_DIM}")
     _check_cuda("flash_attention", (q2, k2, v2), q2.dtype)
-    out = torch.empty_like(q2)
     name = "synfmc_flash_fwd_bf16" if q2.dtype == torch.bfloat16 else "synfmc_flash_fwd_f32"
     P, I, F32 = _cuda.P, _cuda.I, _cuda.F32
     fn = _cuda.entry("flash_fwd", name, [P, P, P, P, I, I, I, I, F32, P])
+    out = torch.empty_like(q2)
     err = fn(q2.data_ptr(), k2.data_ptr(), v2.data_ptr(), out.data_ptr(), b, s, heads, d,
              float(scale), torch.cuda.current_stream(q2.device).cuda_stream)
     _cuda.check(err, "flash_attention")

@@ -67,6 +67,9 @@ def fused_group_norm(x, scale, bias, num_groups: int, eps: float = 1e-5,
     s = x.numel() // (n * c)
     if c > _MAX_C or s * c >= 2 ** 31 or x.data_ptr() % 16:
         raise ValueError(f"fused_group_norm: unsupported slab (S={s}, C={c}) or alignment")
+    name = "synfmc_group_norm_bf16" if x.dtype == torch.bfloat16 else "synfmc_group_norm_f32"
+    P, I, F32 = _cuda.P, _cuda.I, _cuda.F32
+    fn = _cuda.entry("group_norm", name, [P, P, P, P, P, I, I, I, I, F32, I, I, P])
     chunks = _chunks(n, s)
     chunks = -(-s // -(-s // chunks))  # the kernel's own rounding of rows per chunk
     out = torch.empty_like(x)
@@ -74,9 +77,6 @@ def fused_group_norm(x, scale, bias, num_groups: int, eps: float = 1e-5,
                        dtype=torch.float32)
     sc = scale.to(device=x.device, dtype=x.dtype).contiguous()
     bi = bias.to(device=x.device, dtype=x.dtype).contiguous()
-    name = "synfmc_group_norm_bf16" if x.dtype == torch.bfloat16 else "synfmc_group_norm_f32"
-    P, I, F32 = _cuda.P, _cuda.I, _cuda.F32
-    fn = _cuda.entry("group_norm", name, [P, P, P, P, P, I, I, I, I, F32, I, I, P])
     err = fn(x.data_ptr(), sc.data_ptr(), bi.data_ptr(), out.data_ptr(), work.data_ptr(),
              n, s, c, num_groups, float(eps), _ACTS[act], chunks,
              torch.cuda.current_stream(x.device).cuda_stream)

@@ -56,10 +56,10 @@ def temporal_attention(q2, k2, v2, scale: float, heads: int) -> torch.Tensor:
     if f > MAX_FRAMES or d % 8:
         raise ValueError(f"temporal_attention: needs F <= {MAX_FRAMES} and D % 8 == 0, got F={f} D={d}")
     _check_cuda("temporal_attention", (q2, k2, v2), q2.dtype)
-    out = torch.empty_like(q2)
     name = "synfmc_temporal_fwd_bf16" if q2.dtype == torch.bfloat16 else "synfmc_temporal_fwd_f32"
     P, I, F32 = _cuda.P, _cuda.I, _cuda.F32
     fn = _cuda.entry("temporal_fwd", name, [P, P, P, P, I, I, I, I, F32, P])
+    out = torch.empty_like(q2)
     err = fn(q2.data_ptr(), k2.data_ptr(), v2.data_ptr(), out.data_ptr(), n, f, heads, d,
              float(scale), torch.cuda.current_stream(q2.device).cuda_stream)
     _cuda.check(err, "temporal_attention")

@@ -73,7 +73,7 @@ def build_models(config: dict) -> dict:
     pose_chs = chs if "block_out_channels" in ov else tuple(pk.get("channels", chs))
     pose = CameraPoseEncoder(
         downscale_factor=int(pk.get("downscale_factor", 8)),
-        channels=tuple(ov.get("pose_channels", pose_chs)),
+        channels=pose_chs,
         nums_rb=int(pk.get("nums_rb", 2)),
         ksize=int(pk.get("ksize", 1)),
         temporal_attention_nhead=int(pk.get("temporal_attention_nhead", 8)),

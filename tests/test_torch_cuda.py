@@ -5,12 +5,14 @@ which the GPU machine need not have, so run them there with
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-This file imports torch only.  Shapes are small: chip_smoke.py covers the
-main path's shapes.
+This file imports torch and the port only, and takes chip_smoke.py's
+limits.  Shapes are small: chip_smoke.py covers the main path's shapes.
 """
 
 import pytest
 import torch
+
+from chip_smoke import F32_TOL, bf16_ok, kernel_error
 
 pytestmark = pytest.mark.cuda
 
@@ -26,7 +28,12 @@ def _rand(gen, *shape, dtype):
     return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
 
-TOL = {torch.bfloat16: 0.05, torch.float32: 1e-4}
+def assert_close(got, want, dtype):
+    err, rel = kernel_error(got, want)
+    if dtype == torch.float32:
+        assert err < F32_TOL
+    else:
+        assert bf16_ok(err, rel), (err, rel)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -40,7 +47,7 @@ def test_flash_kernel(gen, dtype, b, s, h, d):
     got = flash_attention(q, k, v, d ** -0.5, h)
     assert flash_attention.launches == before + 1
     want = flash_attention_plain(q.float(), k.float(), v.float(), d ** -0.5, h)
-    assert (got.float() - want).abs().max().item() < TOL[dtype]
+    assert_close(got, want, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -56,7 +63,7 @@ def test_temporal_kernel(gen, dtype, n, f, h, d):
     got = temporal_attention(q, k, v, d ** -0.5, h)
     assert temporal_attention.launches == before + 1
     want = temporal_attention_plain(q.float(), k.float(), v.float(), d ** -0.5, h)
-    assert (got.float() - want).abs().max().item() < TOL[dtype]
+    assert_close(got, want, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -72,4 +79,27 @@ def test_group_norm_kernel(gen, dtype, n, s, c, groups, act):
     got = fused_group_norm(x, w, b, groups, 1e-6, act)
     assert fused_group_norm.launches == before + 1
     want = group_norm_plain(x.float(), w.float(), b.float(), groups, 1e-6, act)
-    assert (got.float() - want).abs().max().item() < TOL[dtype]
+    assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("kernel", ["group_norm", "flash_fwd", "temporal_fwd"])
+def test_unloadable_kernel_raises(gen, monkeypatch, kernel):
+    """A CUDA tensor never drops to the plain version: a library that cannot
+    be loaded raises out of the wrapper."""
+    from synfmc_tpu_torch.ops import _cuda
+    from synfmc_tpu_torch.ops.flash_attention import flash_attention
+    from synfmc_tpu_torch.ops.fused_groupnorm import fused_group_norm
+    from synfmc_tpu_torch.ops.temporal_attention import temporal_attention
+
+    def no_lib(name):
+        raise RuntimeError(f"no {name} library")
+
+    monkeypatch.setattr(_cuda, "load", no_lib)
+    monkeypatch.setattr(_cuda, "_entries", {})
+    x = _rand(gen, 8, 16, 32, dtype=torch.bfloat16)
+    w = torch.ones(32, device="cuda", dtype=torch.bfloat16)
+    fn, args = {"group_norm": (fused_group_norm, (x, w, w, 4)),
+                "flash_fwd": (flash_attention, (x, x, x, 0.5, 4)),
+                "temporal_fwd": (temporal_attention, (x, x, x, 0.5, 4))}[kernel]
+    with pytest.raises(RuntimeError, match=f"no {kernel} library"):
+        fn(*args)

@@ -148,6 +148,26 @@ def test_dispatch_runs_each_path_on_cpu(rng):
         np.testing.assert_allclose(got.numpy(), want.numpy(), atol=ATOL, rtol=1e-4)
 
 
+@pytest.mark.parametrize("fault", [None, "output 3% high", "16 keys dropped"])
+def test_bf16_kernel_check_fails_faulty_kernels(rng, fault):
+    """chip_smoke.py's bf16 check at a main-path head shape (S=384, D=80):
+    the plain version on bf16 operands (the roundings a sound kernel makes)
+    passes it, a kernel wrong by a few percent or missing a few keys fails."""
+    from chip_smoke import bf16_ok, kernel_error
+
+    b, s, h, d = 2, 384, 8, 80
+    q, k, v = (torch.from_numpy(rng.normal(size=(b, s, h * d)).astype(np.float32))
+               .to(torch.bfloat16) for _ in range(3))
+    want = flash_attention_plain(q.float(), k.float(), v.float(), d ** -0.5, h)
+    if fault is None:
+        got = flash_attention_plain(q, k, v, d ** -0.5, h)
+    elif fault == "output 3% high":
+        got = flash_attention_plain(q, k, v, d ** -0.5, h).float() * 1.03
+    else:
+        got = flash_attention_plain(q, k[:, :-16], v[:, :-16], d ** -0.5, h)
+    assert bf16_ok(*kernel_error(got, want)) == (fault is None)
+
+
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
@@ -157,18 +177,37 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
         _cuda.load("group_norm")
 
 
-def test_cuda_tensor_never_falls_back(monkeypatch):
-    """A CUDA tensor goes to the kernel: with no library it raises."""
+class _ReportsCuda(torch.Tensor):
+    """A CPU tensor that reports a CUDA device, so that a wrapper takes its
+    CUDA branch on a machine without a card."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("kernel", ["group_norm", "flash_fwd", "temporal_fwd"])
+def test_cuda_tensor_never_falls_back(monkeypatch, kernel):
+    """On a CUDA tensor the wrapper asks for its kernel, and a library that
+    cannot be loaded raises out of the wrapper instead of running the plain
+    version."""
+    asked = []
+
     def no_lib(name):
+        asked.append(name)
         raise RuntimeError(f"no {name} library")
 
     monkeypatch.setattr(_cuda, "load", no_lib)
-    x = torch.empty((2, 8, 32), device="meta")
-    for fn, args in [(fused_group_norm, (x, torch.ones(32), torch.zeros(32), 4)),
-                     (flash_attention, (x, x, x, 0.5, 4)),
-                     (temporal_attention, (x, x, x, 0.5, 4))]:
-        with pytest.raises((RuntimeError, ValueError)):
-            fn(*args)
+    monkeypatch.setattr(_cuda, "_entries", {})
+    x = torch.zeros((8, 16, 32)).as_subclass(_ReportsCuda)
+    assert x.device.type == "cuda"
+    fn, args = {"group_norm": (fused_group_norm, (x, torch.ones(32), torch.zeros(32), 4)),
+                "flash_fwd": (flash_attention, (x, x, x, 0.5, 4)),
+                "temporal_fwd": (temporal_attention, (x, x, x, 0.5, 4))}[kernel]
+    before = fn.launches
+    with pytest.raises(RuntimeError, match=f"no {kernel} library"):
+        fn(*args)
+    assert asked == [kernel] and fn.launches == before
 
 
 def test_build_pipeline_requires_gpu_unless_cpu_asked(monkeypatch):
