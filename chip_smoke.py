@@ -6,8 +6,9 @@
 Phases, each raising on failure (non-zero exit):
   1. device   - needs CUDA; prints the card's name and power limit;
   2. build    - compiles every CUDA kernel from synfmc_tpu_torch/csrc/;
-  3. kernels  - each kernel at every shape the main path gives it (recorded
-                from one full-width forward) against its plain PyTorch version
+  3. kernels  - each forward kernel at every shape one full-width serving
+                forward gives it, and K1 at the padded stand-in shape
+                2x1617x(8x40) (K4's case), against its plain PyTorch version
                 on the same bf16 inputs (max abs error < 0.05 and < 2**-6 of
                 the plain output's largest magnitude) plus one fp32 case each
                 (< 1e-4, TF32 off), with kernel, plain, library (one PyTorch
@@ -15,13 +16,33 @@ Phases, each raising on failure (non-zero exit):
   4. compose  - the tiny-width pipeline in fp32 on the GPU (kernels) and on
                 the CPU (plain versions) with the same weights: final
                 latents within 1e-3;
-  5. main     - the flagship cam-stage pipeline of configs/cam.yaml in bf16
+  5. train-compose - the tiny-width stage-2 train step in fp32 on the GPU and
+                on the CPU with the same weights, batches and draws: loss
+                within 1e-5 relative, every trainable gradient within 1e-3 of
+                its largest magnitude, parameters after 2 AdamW steps within
+                2 lr;
+  6. main     - the flagship cam-stage pipeline of configs/cam.yaml in bf16
                 with seeded random weights answers two requests (16 frames,
                 256x384, guidance 8, 4 DDIM steps, decode) with launch
-                counters checked.
-``--profile`` adds a torch.profiler trace of one request's denoise loop: device
-time by kernel family per step and the device's idle share.  The last two
-lines of stdout are the kernels' JSON summary and {"ok": true, "device": {...}}.
+                counters checked;
+  7. train    - training.trainers.train("cam", configs/cam.yaml) at full
+                width (batch 1, 16x256x384, bf16, fp32 masters) takes 5 AdamW
+                steps on seeded synthetic batches: finite losses, a finite
+                non-zero gradient for every trainable tensor at step 1,
+                trainable weights moved and frozen ones not, launch counters
+                exact per step; ms per step, peak memory, trainable count;
+  8. backward - every kernel at every shape the recorded train steps gave it
+                (forward kernels at the train shapes; the backward kernels K5
+                and K8 gradient by gradient: abs < 1.0, < 2**-6 of the plain
+                gradient's largest magnitude), the flash backward at the
+                stand-in shapes of K6 (2x6144x(8x40)) and K7 (2x1617x(8x40)),
+                one fp32 case each (< 1e-4 of the largest magnitude), times
+                against the bound, the plain version and SDPA's backward, and
+                the GroupNorm backward (PyTorch ops, not a kernel) timed.
+``--profile`` adds a torch.profiler trace of one request's denoise loop and of
+one extra train step: device time by kernel family and the device's idle
+share.  The last two lines of stdout are the kernels' JSON summary and
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -44,6 +65,12 @@ BF16_TOL = 0.05  # outer cap: bench.py:verify_kernels_on_device forward bound
 # roundings inside a kernel (scaled q, P before PV) and still fails a kernel
 # whose output is wrong by a few percent.
 BF16_REL_TOL = 2 ** -6
+# Backward: bench.py's backward bound of 1.0 abs as an outer cap, and each
+# gradient's max error under 2**-6 of the plain gradient's largest magnitude.
+# The plain backward on bf16 operands (a sound kernel's roundings) stays
+# under 0.009 at the train shapes; 2**-5 would pass a dQ 3% high (0.03).
+BWD_TOL = 1.0
+BWD_REL_TOL = 2 ** -6
 F32_TOL = 1e-4
 LATENT_TOL = 1e-3
 
@@ -67,6 +94,19 @@ FRAMES, HEIGHT, WIDTH, STEPS, GUIDANCE, OMCM = 16, 256, 384, 4, 8.0, 700
 PER_FORWARD = {"flash": 10, "temporal": 41, "group_norm": 81}
 PER_REQUEST = {"temporal": 8}   # pose encoder, batch 1
 PER_FRAME = {"group_norm": 30}  # VAE decoder
+# One stage-2 train step at batch 1: the UNet forward (K1 x10, K2 x41, K3 x81)
+# plus the pose encoder (K2 x8) and the VAE encoder (K3 x22); the backward
+# skips the first level-0 spatial attention, which runs before the first
+# trainable pose merge.
+TRAIN_STEPS = 5
+TRAIN_PER_STEP = {"flash": 10, "flash_bwd": 9, "temporal": 49, "temporal_bwd": 49,
+                  "group_norm": 103}
+COMPOSE_LR = 1e-4
+# Stand-ins for the TPU kernels off the main path, on the same CUDA kernels:
+# K4/K7 (padded, S % 8 != 0) at latents 33x49 (264x392 px), K6 (q-blocked)
+# at the 512x768 level-0 length.
+K47_KEY = ("k4/k7", 2, 1617, 320, 8, 40 ** -0.5)
+K6_KEY = ("k6", 2, 6144, 320, 8, 40 ** -0.5)
 
 
 def log(msg: str) -> None:
@@ -108,6 +148,10 @@ def bf16_ok(err: float, rel: float) -> bool:
     return err < BF16_TOL and rel < BF16_REL_TOL
 
 
+def bwd_ok(err: float, rel: float) -> bool:
+    return err < BWD_TOL and rel < BWD_REL_TOL
+
+
 def camera(kind: str, b: int = 1):
     """Intrinsics as scripts/generate.py builds them ([w, h, 0, 0]); c2w either
     identity or a synthetic pan (translation along x plus a slow yaw)."""
@@ -132,52 +176,98 @@ def feature_shapes(chs, b=1):
 # ---------------------------------------------------------------------------
 
 
+class _Shim:
+    """A recording stand-in for a kernel wrapper: records each call's
+    arguments, then calls the wrapper.  ``launches`` reads and writes the
+    wrapper's own counter, which the wrapper bumps through its module name."""
+
+    def __init__(self, fn, record):
+        self.fn, self.record = fn, record
+
+    def __call__(self, *a, **kw):
+        self.record(*a, **kw)
+        return self.fn(*a, **kw)
+
+    @property
+    def launches(self):
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.fn.launches = n
+
+
+class Recorder:
+    """Wraps every kernel wrapper at its call site (the attention router,
+    ops.norms, and the backward calls of the autograd Functions) to count
+    the shapes and arguments the running code gives each kernel, keyed by
+    ``self.stage``.  The wrappers themselves run unchanged."""
+
+    def __init__(self, stage: str):
+        self.stage = stage
+        self.seen = {k: Counter() for k in ("flash", "temporal", "group_norm", "flash_bwd",
+                                            "temporal_bwd", "group_norm_bwd")}
+
+    def __enter__(self):
+        import synfmc_tpu_torch.ops.attention as attn_mod
+        import synfmc_tpu_torch.ops.flash_attention as fa_mod
+        import synfmc_tpu_torch.ops.fused_groupnorm as gn_mod
+        import synfmc_tpu_torch.ops.norms as norms_mod
+        import synfmc_tpu_torch.ops.temporal_attention as ta_mod
+
+        seen = self.seen
+
+        def attn(kind, fn):
+            def record(q, *a):  # (q, k, v, [out, lse,] [dout,] scale, heads)
+                seen[kind][(self.stage,) + tuple(q.shape) + (a[-1], a[-2])] += 1
+            return _Shim(fn, record)
+
+        def gn(kind, fn):
+            def record(x, *a, **kw):
+                n, c = x.shape[0], x.shape[-1]
+                groups, eps, act = (list(a[2:]) + [kw.get("eps", 1e-5), kw.get("act")])[:3] \
+                    if kind == "group_norm" else (a[3], a[4], a[5])
+                seen[kind][(self.stage, n, x.numel() // (n * c), c, groups, eps, act)] += 1
+            return _Shim(fn, record)
+
+        self.sites = [(attn_mod, "flash_attention", "flash", attn),
+                      (attn_mod, "temporal_attention", "temporal", attn),
+                      (norms_mod, "fused_group_norm", "group_norm", gn),
+                      (fa_mod, "flash_attention_bwd", "flash_bwd", attn),
+                      (ta_mod, "temporal_attention_bwd", "temporal_bwd", attn),
+                      (gn_mod, "group_norm_bwd", "group_norm_bwd", gn)]
+        self.real = [getattr(mod, name) for mod, name, _, _ in self.sites]
+        for (mod, name, kind, shim), fn in zip(self.sites, self.real):
+            setattr(mod, name, shim(kind, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name, _, _), fn in zip(self.sites, self.real):
+            setattr(mod, name, fn)
+
+
 def record_shapes(pipe, chs):
     """One full-width UNet forward on the CFG pair, one pose-encoder call and
-    one VAE frame decode with the wrappers' call sites wrapped, to collect
-    the shapes and arguments the main path gives each kernel."""
-    import synfmc_tpu_torch.ops.attention as attn_mod
-    import synfmc_tpu_torch.ops.norms as norms_mod
+    one VAE frame decode, recorded, to collect the shapes and arguments the
+    serving path gives each kernel."""
+    from synfmc_tpu_torch.geometry.plucker import plucker_embedding
 
-    seen = {"flash": Counter(), "temporal": Counter(), "group_norm": Counter()}
-    real = (attn_mod.flash_attention, attn_mod.temporal_attention, norms_mod.fused_group_norm)
-
-    def flash(q, k, v, scale, heads):
-        seen["flash"][(stage[0],) + tuple(q.shape) + (heads, scale)] += 1
-        return real[0](q, k, v, scale, heads)
-
-    def temporal(q, k, v, scale, heads):
-        seen["temporal"][(stage[0],) + tuple(q.shape) + (heads, scale)] += 1
-        return real[1](q, k, v, scale, heads)
-
-    def gn(x, scale, bias, num_groups, eps=1e-5, act=None):
-        n, c = x.shape[0], x.shape[-1]
-        seen["group_norm"][(stage[0], n, x.numel() // (n * c), c, num_groups, eps, act)] += 1
-        return real[2](x, scale, bias, num_groups, eps=eps, act=act)
-
-    stage = ["pose"]
-    attn_mod.flash_attention, attn_mod.temporal_attention, norms_mod.fused_group_norm = (
-        flash, temporal, gn)
-    try:
-        from synfmc_tpu_torch.geometry.plucker import plucker_embedding
-
+    with Recorder("pose") as rec:
         dev, dt = pipe.device, pipe.unet.dtype
         with torch.inference_mode():
             intr, c2w = camera("pan")
             pose = pipe.encode_pose(plucker_embedding(intr.to(dev), c2w.to(dev), HEIGHT, WIDTH))
-            stage[0] = "unet"
+            rec.stage = "unet"
             lat = torch.randn(2, FRAMES, HEIGHT // 8, WIDTH // 8, 4, device=dev)
             ctx = torch.randn(2, 77, 768, device=dev, dtype=dt)
             pose2 = [torch.cat([p, p]) for p in pose]
             traj = [torch.randn(s, device=dev, dtype=dt) for s in feature_shapes(chs, 2)]
             pipe.unet(lat, torch.full((2,), 751, device=dev), ctx, pose_features=pose2,
                       traj_features=traj)
-            stage[0] = "vae"
+            rec.stage = "vae"
             pipe.vae.decode(lat[:1, 0])
         torch.cuda.synchronize()
-    finally:
-        attn_mod.flash_attention, attn_mod.temporal_attention, norms_mod.fused_group_norm = real
-    return seen
+    return {k: rec.seen[k] for k in ("flash", "temporal", "group_norm")}
 
 
 def kernel_case(kind, key, dtype, gen):
@@ -224,7 +314,21 @@ def kernel_case(kind, key, dtype, gen):
             library, sets, float(ops), 2.0 * n * s * c * esize, "f32")
 
 
-def check_kernels(seen, rates):
+def _row(kind, key, count, err, rel, kern, plain, lib, sets, flops, nbytes, rate, rates):
+    t_ops, t_bytes = flops / rates[rate] * 1e3, nbytes / rates["bytes"] * 1e3
+    row = dict(key=key, per_forward=count, err=err, rel=rel, ms=time_ms(kern, sets),
+               plain_ms=time_ms(plain, sets, reps=5, warmup=1),
+               library_ms=time_ms(lib, sets), bound_ms=max(t_ops, t_bytes),
+               bound_by="operations" if t_ops > t_bytes else "bytes")
+    log(f"  {kind:12s} {str(key[:-2] if 'group_norm' not in kind else key):60s} "
+        f"x{count:3d} err={err:.2e} rel={rel:.2e} ms={row['ms']:.4f} "
+        f"plain={row['plain_ms']:.4f} lib={row['library_ms']:.4f} "
+        f"bound={row['bound_ms']:.4f} ({row['bound_by']})")
+    return row
+
+
+def check_kernels(seen, rates, fp32=True):
+    """Forward kernels at the recorded keys (bf16), then one fp32 case each."""
     gen = torch.Generator(device="cuda").manual_seed(1234)
     results = {k: [] for k in seen}
     for kind, keys in seen.items():
@@ -236,15 +340,10 @@ def check_kernels(seen, rates):
             if not bf16_ok(err, rel):
                 raise AssertionError(f"{kind} {key}: bf16 max abs err {err} (limit {BF16_TOL}), "
                                      f"{rel} of the largest output (limit {BF16_REL_TOL})")
-            t_ops, t_bytes = flops / rates[rate] * 1e3, nbytes / rates["bytes"] * 1e3
-            row = dict(key=key, per_forward=count, err=err, rel=rel, ms=time_ms(kern, sets),
-                       plain_ms=time_ms(plain, sets, reps=5, warmup=1),
-                       library_ms=time_ms(lib, sets), bound_ms=max(t_ops, t_bytes),
-                       bound_by="operations" if t_ops > t_bytes else "bytes")
-            results[kind].append(row)
-            log(f"  {kind:10s} {str(key[:-2] if kind != 'group_norm' else key):60s} "
-                f"x{count:3d} err={err:.2e} rel={rel:.2e} ms={row['ms']:.4f} "
-                f"plain={row['plain_ms']:.4f} lib={row['library_ms']:.4f} bound={row['bound_ms']:.4f} ({row['bound_by']})")
+            results[kind].append(_row(kind, key, count, err, rel, kern, plain, lib, sets, flops,
+                                      nbytes, rate, rates))
+    if not fp32:
+        return results
     # one fp32 case per kernel, TF32 off everywhere
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -255,8 +354,131 @@ def check_kernels(seen, rates):
         err = (kern(*sets[0]) - plain(*sets[0])).abs().max().item()
         if not err < F32_TOL:
             raise AssertionError(f"{kind} {key}: fp32 max abs err {err} >= {F32_TOL}")
-        log(f"  {kind:10s} fp32 {key[1:4]} err={err:.2e}")
+        log(f"  {kind:12s} fp32 {key[1:4]} err={err:.2e}")
     return results
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the train step's kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def bwd_case(kind, key, dtype, gen):
+    """A backward kernel at ``key`` = (stage, rows, seq, channels, heads, scale):
+    (kernel fn, plain fn, library fn, input sets, library sets, flops, bytes).
+    The flash backward takes K1's output and log-sum-exp of the same inputs;
+    the library is SDPA's backward through a graph built once per set."""
+    from synfmc_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_bwd_plain,
+        flash_attention_fwd,
+    )
+    from synfmc_tpu_torch.ops.temporal_attention import (
+        temporal_attention_bwd,
+        temporal_attention_bwd_plain,
+    )
+
+    _, b, s, c, heads, scale = key
+    d = c // heads
+    esize = torch.finfo(dtype).bits // 8
+    rnd = lambda: torch.randn(b, s, c, generator=gen, device="cuda").to(dtype)
+    view = lambda x: x.detach().view(b, s, heads, d).transpose(1, 2)
+    sets, lib_sets = [], []
+    for _ in range(2):
+        q, k, v, do = rnd(), rnd(), rnd(), rnd()
+        if kind == "flash_bwd":
+            o, lse = flash_attention_fwd(q, k, v, scale, heads, with_lse=True)
+            sets.append((q, k, v, o, lse, do))
+        else:
+            sets.append((q, k, v, do))
+        ins = [view(x).requires_grad_() for x in (q, k, v)]
+        lib_sets.append((F.scaled_dot_product_attention(*ins, scale=scale), ins, view(do)))
+    if kind == "flash_bwd":
+        kern = lambda q, k, v, o, lse, do: flash_attention_bwd(q, k, v, o, lse, do, scale, heads)
+        plain = lambda q, k, v, o, lse, do: flash_attention_bwd_plain(q, k, v, do, scale, heads)
+    else:
+        kern = lambda q, k, v, do: temporal_attention_bwd(q, k, v, do, scale, heads)
+        plain = lambda q, k, v, do: temporal_attention_bwd_plain(q, k, v, do, scale, heads)
+    lib = lambda out, ins, g: torch.autograd.grad(out, ins, g, retain_graph=True)
+    # 5 products of 2*S*S*D per (row, head); q, k, v, dO read, dq, dk, dv written
+    return (kern, plain, lib, sets, lib_sets, 10.0 * b * heads * s * s * d,
+            7.0 * b * s * c * esize)
+
+
+def _bwd_errors(kind, key, got, want, ok, limit):
+    errs = [kernel_error(g, w) for g, w in zip(got, want)]
+    for name, (err, rel) in zip(("dq", "dk", "dv"), errs):
+        if not ok(err, rel):
+            raise AssertionError(f"{kind} {key} {name}: max abs err {err}, {rel} of the "
+                                 f"largest gradient (limits {limit})")
+    return max(e for e, _ in errs), max(r for _, r in errs)
+
+
+def check_bwd(seen, rates):
+    """Backward kernels at the recorded keys and the stand-ins (bf16,
+    gradient by gradient), then one fp32 case each."""
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    results = {"flash_bwd": [], "temporal_bwd": []}
+    for kind in results:
+        for key, count in sorted(seen[kind].items(), key=lambda kv: str(kv[0])):
+            kern, plain, lib, sets, lib_sets, flops, nbytes = bwd_case(kind, key, torch.bfloat16,
+                                                                      gen)
+            want = plain(*(x.float() for x in sets[0]))
+            err, rel = _bwd_errors(kind, key, kern(*sets[0]), want, bwd_ok,
+                                   (BWD_TOL, BWD_REL_TOL))
+            torch.cuda.synchronize()
+            t_ops, t_bytes = flops / rates["bf16"] * 1e3, nbytes / rates["bytes"] * 1e3
+            row = dict(key=key, per_forward=count, err=err, rel=rel, ms=time_ms(kern, sets),
+                       plain_ms=time_ms(plain, sets, reps=3, warmup=1),
+                       library_ms=time_ms(lib, lib_sets), bound_ms=max(t_ops, t_bytes),
+                       bound_by="operations" if t_ops > t_bytes else "bytes")
+            results[kind].append(row)
+            log(f"  {kind:12s} {str(key[:-1]):44s} x{count:3d} err={err:.2e} rel={rel:.2e} "
+                f"ms={row['ms']:.4f} plain={row['plain_ms']:.4f} lib={row['library_ms']:.4f} "
+                f"bound={row['bound_ms']:.4f} ({row['bound_by']})")
+            del sets, lib_sets
+            torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for kind, key in (("flash_bwd", ("f32", 2, 389, 640, 8, 80 ** -0.5)),
+                      ("temporal_bwd", ("f32", 768, 16, 640, 8, 80 ** -0.5))):
+        kern, plain, _, sets, *_ = bwd_case(kind, key, torch.float32, gen)
+        ok = lambda err, rel: rel < F32_TOL
+        _, rel = _bwd_errors(kind, key, kern(*sets[0]), plain(*sets[0]), ok, F32_TOL)
+        log(f"  {kind:12s} fp32 {key[1:4]} max err {rel:.2e} of the largest gradient")
+    return results
+
+
+def time_gn_bwd(seen, rates):
+    """The GroupNorm backward (PyTorch ops on both devices, as the JAX package
+    differentiates XLA's GroupNorm) at the recorded train keys, against
+    F.group_norm's own backward."""
+    from synfmc_tpu_torch.ops.fused_groupnorm import group_norm_bwd
+
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    rows = []
+    for key, count in sorted(seen.items(), key=lambda kv: str(kv[0])):
+        _, n, s, c, groups, eps, act = key
+        sets, lib_sets = [], []
+        for _ in range(2):
+            x = torch.randn(n, s, c, generator=gen, device="cuda").to(torch.bfloat16)
+            w = torch.ones(c, device="cuda", dtype=torch.bfloat16)
+            g = torch.randn(n, s, c, generator=gen, device="cuda").to(torch.bfloat16)
+            sets.append((x, w, g))
+            xl = x.transpose(1, 2).unsqueeze(-1).detach().requires_grad_()
+            y = F.group_norm(xl, groups, w, torch.zeros_like(w), eps)
+            y = F.silu(y) if act == "silu" else (F.relu(y) if act == "relu" else y)
+            lib_sets.append((y, xl, g.transpose(1, 2).unsqueeze(-1)))
+        fn = lambda x, w, g: group_norm_bwd(x, w, torch.zeros_like(w), g, groups, eps, act,
+                                            affine=False)
+        lib = lambda y, xl, g: torch.autograd.grad(y, xl, g, retain_graph=True)
+        bound = 3.0 * n * s * c * 2 / rates["bytes"] * 1e3  # x, dout read; dx written
+        row = dict(key=key, count=count, ms=time_ms(fn, sets, reps=5),
+                   library_ms=time_ms(lib, lib_sets, reps=5), bound_ms=bound)
+        rows.append(row)
+        log(f"  group_norm_bwd {str(key[1:]):44s} x{count:3d} ms={row['ms']:.4f} "
+            f"lib={row['library_ms']:.4f} bound={bound:.4f} (bytes)")
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -264,15 +486,23 @@ def check_kernels(seen, rates):
 # ---------------------------------------------------------------------------
 
 
-def compose():
-    from synfmc_tpu_torch.geometry.plucker import plucker_embedding
-    from synfmc_tpu_torch.pipelines.animation import decode_latents
-    from synfmc_tpu_torch.pipelines.factory import build_pipeline, load_config
+def tiny_config(mixed_precision: bool):
+    from synfmc_tpu_torch.pipelines.factory import load_config
 
     cfg = load_config(CAM_YAML)
     cfg["model_overrides"] = TINY_OVERRIDES
     cfg["unet_additional_kwargs"]["motion_module_kwargs"]["num_attention_heads"] = 4
     cfg["pose_encoder_kwargs"]["temporal_attention_nhead"] = 4
+    cfg["mixed_precision_training"] = mixed_precision
+    return cfg
+
+
+def compose():
+    from synfmc_tpu_torch.geometry.plucker import plucker_embedding
+    from synfmc_tpu_torch.pipelines.animation import decode_latents
+    from synfmc_tpu_torch.pipelines.factory import build_pipeline
+
+    cfg = tiny_config(mixed_precision=False)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cpu = build_pipeline(cfg, device="cpu", dtype=torch.float32, seed=0)
@@ -307,16 +537,119 @@ def compose():
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the main path at full width
+# phase 5: the train step at tiny width, GPU kernels against CPU plain versions
+# ---------------------------------------------------------------------------
+
+
+def synthetic_batches(seed: int, b: int = 1):
+    """Collated raw batches in the dataset's format: pixels in [-1, 1], two
+    captions, a pan camera (slow yaw plus a slide along x) as relative
+    [R|t] rows, intrinsics [w, h, 0, 0], a rectangle object mask."""
+    rng = np.random.default_rng(seed)
+    s = np.linspace(0.0, 1.0, FRAMES, dtype=np.float32)
+    rt = np.zeros((b, FRAMES, 3, 4), np.float32)
+    rt[..., 0, 0] = rt[..., 2, 2] = np.cos(0.3 * s)
+    rt[..., 0, 2], rt[..., 2, 0] = np.sin(0.3 * s), -np.sin(0.3 * s)
+    rt[..., 1, 1] = 1.0
+    rt[..., 0, 3] = s
+    mask = np.zeros((b, FRAMES, HEIGHT, WIDTH, 1), np.float32)
+    mask[:, :, HEIGHT // 4:3 * HEIGHT // 4, WIDTH // 3:2 * WIDTH // 3] = 1.0
+    while True:
+        yield {
+            "pixel_values": rng.uniform(-1, 1, (b, FRAMES, HEIGHT, WIDTH, 3)).astype(np.float32),
+            "captions": ["a knight marches across a field"] * b,
+            "background_captions": ["a grassy field under a grey sky"] * b,
+            "camera_rt": rt.reshape(b, FRAMES, 12),
+            "intrinsics": np.tile(np.array([WIDTH, HEIGHT, 0, 0], np.float32), (b, FRAMES, 1)),
+            "obj_union_mask": mask,
+            "flip_flag": np.zeros(b, bool),
+        }
+
+
+def train_compose():
+    """Two stage-2 steps of the tiny model in fp32 on each device, with the
+    same weights, batches and draws."""
+    from synfmc_tpu_torch.data.tokenizer import HashTokenizer
+    from synfmc_tpu_torch.diffusion.scheduler import DiffusionSchedule
+    from synfmc_tpu_torch.pipelines.factory import build_models, init_random_
+    from synfmc_tpu_torch.training.optim import make_optimizer
+    from synfmc_tpu_torch.training.params import partition_params, stage2_cmc_unet_trainable
+    from synfmc_tpu_torch.training.steps import (
+        apply_grads,
+        draw_cam,
+        init_train_state,
+        make_cam_grads_fn,
+    )
+    from synfmc_tpu_torch.training.trainers import host_batch, step_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = tiny_config(mixed_precision=False)
+    scfg = step_config(cfg)
+    schedule = DiffusionSchedule.from_config(**cfg["noise_scheduler_kwargs"])
+    cpu = build_models(cfg)
+    gen = torch.Generator().manual_seed(0)
+    for m in cpu.values():
+        init_random_(m, gen)
+    with torch.device("cuda"):
+        gpu = build_models(cfg)
+    for name, m in gpu.items():
+        m.load_state_dict(cpu[name].state_dict())
+    sides = {}
+    for dev, models in (("cuda", gpu), ("cpu", cpu)):
+        trainable = {**partition_params(models["unet"], stage2_cmc_unet_trainable, "unet."),
+                     **partition_params(models["pose_encoder"], lambda n: True, "pose_encoder.")}
+        for name in ("vae", "text"):
+            partition_params(models[name], lambda n: False)
+        sides[dev] = (init_train_state(trainable, make_optimizer(COMPOSE_LR)),
+                      make_cam_grads_fn(models["unet"], models["pose_encoder"], models["vae"],
+                                        models["text"], schedule, scfg))
+    tok, batches = HashTokenizer(), synthetic_batches(3)
+    for step in range(2):
+        raw = next(batches)
+        draws = draw_cam(torch.Generator().manual_seed(100 + step),
+                         host_batch(raw, tok, "cpu"), scfg, schedule)
+        out = {}
+        for dev, (state, grads_fn) in sides.items():
+            t0 = time.perf_counter()
+            out[dev] = grads_fn(state.trainable, host_batch(raw, tok, dev), draws.to(dev))
+            log(f"  step {step + 1} {dev}: {time.perf_counter() - t0:.1f} s, "
+                f"loss {float(out[dev][1]['loss']):.6f}")
+        if step == 0:
+            lg, lc = float(out["cuda"][1]["loss"]), float(out["cpu"][1]["loss"])
+            loss_rel = abs(lg - lc) / abs(lc)
+            grad_rel = max(kernel_error(out["cuda"][0][n].cpu(), g)[1]
+                           for n, g in out["cpu"][0].items())
+            log(f"  loss rel err {loss_rel:.2e} (limit 1e-5); largest gradient error "
+                f"{grad_rel:.2e} of its tensor's largest magnitude (limit 1e-3)")
+            if not (loss_rel < 1e-5 and grad_rel < 1e-3):
+                raise AssertionError(f"train-compose: loss {lg} vs {lc}, gradients {grad_rel}")
+        for dev, (state, _) in sides.items():
+            apply_grads(state, out[dev][0])
+    gpu_p, cpu_p = sides["cuda"][0].trainable, sides["cpu"][0].trainable
+    param_err = max((gpu_p[n].detach().cpu() - p.detach()).abs().max().item()
+                    for n, p in cpu_p.items())
+    log(f"  parameters after 2 AdamW steps: max abs diff {param_err:.2e} "
+        f"(limit 2 lr = {2 * COMPOSE_LR:.0e})")
+    if not param_err < 2 * COMPOSE_LR:
+        raise AssertionError(f"train-compose: parameters differ by {param_err}")
+    del sides, cpu, gpu
+    torch.cuda.empty_cache()
+    return loss_rel, grad_rel, param_err
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the serving path at full width
 # ---------------------------------------------------------------------------
 
 
 def counters():
-    from synfmc_tpu_torch.ops.flash_attention import flash_attention
+    from synfmc_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
     from synfmc_tpu_torch.ops.fused_groupnorm import fused_group_norm
-    from synfmc_tpu_torch.ops.temporal_attention import temporal_attention
+    from synfmc_tpu_torch.ops.temporal_attention import temporal_attention, temporal_attention_bwd
 
-    return {"flash": flash_attention, "temporal": temporal_attention,
+    return {"flash": flash_attention, "flash_bwd": flash_attention_bwd,
+            "temporal": temporal_attention, "temporal_bwd": temporal_attention_bwd,
             "group_norm": fused_group_norm}
 
 
@@ -325,8 +658,8 @@ def serve(pipe, chs):
 
     requests = [("a knight marches across a field", "identity"),
                 ("a blue dragon soars, seen from behind", "pan")]
-    expect = {k: PER_FORWARD[k] * STEPS + PER_REQUEST.get(k, 0) + PER_FRAME.get(k, 0) * FRAMES
-              for k in PER_FORWARD}
+    expect = {k: PER_FORWARD.get(k, 0) * STEPS + PER_REQUEST.get(k, 0)
+              + PER_FRAME.get(k, 0) * FRAMES for k in counters()}
     dev, dt = pipe.device, pipe.unet.dtype
     launches = Counter()
     step_ms, clip_s = [], []
@@ -369,6 +702,127 @@ def serve(pipe, chs):
     return launches, statistics.median(step_ms), clip_s, torch.cuda.max_memory_allocated()
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the stage-2 train step at full width
+# ---------------------------------------------------------------------------
+
+
+def train_main(profile: bool):
+    """train("cam", configs/cam.yaml) for TRAIN_STEPS steps (one more, traced,
+    with --profile), with the kernel shapes recorded for phase 8."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from synfmc_tpu_torch.training.trainers import train
+
+    kernels = counters()
+    per_step, grad_flags, traced = [], [], {}
+
+    def on_step(state, metrics, draws):
+        per_step.append({k: fn.launches for k, fn in kernels.items()})
+        for fn in kernels.values():
+            fn.launches = 0
+        # a finite, non-zero gradient for every trainable tensor, at step 1
+        # unless its camera CFG dropout zeroed the Plücker input (then the
+        # pose encoder's first layers rightly get zero gradients): the first
+        # step that kept the camera
+        if not grad_flags and not bool(draws.camera_drop.any()):
+            grad_flags.extend(
+                (n, p.grad is not None and bool(torch.isfinite(p.grad).all())
+                 and bool(p.grad.abs().max() > 0)) for n, p in state.trainable.items())
+            grad_flags.insert(0, ("step", state.step))
+        if profile and state.step == TRAIN_STEPS:
+            torch.cuda.synchronize()
+            traced["prof"] = torch_profile(activities=[ProfilerActivity.CUDA])
+            traced["prof"].start()
+            traced["t0"] = time.perf_counter()
+        elif profile and state.step == TRAIN_STEPS + 1:
+            torch.cuda.synchronize()
+            traced["ms"] = (time.perf_counter() - traced["t0"]) * 1e3
+            traced["prof"].stop()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    with Recorder("train") as rec:
+        out = train("cam", CAM_YAML, synthetic_batches(0), TRAIN_STEPS + int(profile), seed=0,
+                    on_step=on_step)
+    peak = torch.cuda.max_memory_allocated()
+    if not grad_flags:
+        raise AssertionError("train: every step dropped the camera")
+    (_, grad_step), grad_flags = grad_flags[0], grad_flags[1:]
+    bad = [n for n, ok in grad_flags if not ok]
+    if not grad_flags or bad:
+        raise AssertionError(f"train: step-{grad_step} gradients missing, non-finite or zero: "
+                             f"{bad[:10]}")
+    if not all(np.isfinite(out["losses"])):
+        raise AssertionError(f"train: losses {out['losses']}")
+    (t0, t1), (f0, f1) = out["checksums"]["trainable"], out["checksums"]["frozen"]
+    if t0 == t1 or f0 != f1:
+        raise AssertionError(f"train: trainable checksum {t0} -> {t1}, frozen {f0} -> {f1}")
+    for i, got in enumerate(per_step):
+        if got != TRAIN_PER_STEP:
+            raise AssertionError(f"train step {i + 1}: launches {got} != {TRAIN_PER_STEP}")
+    ms = statistics.median(out["step_s"][1:TRAIN_STEPS]) * 1e3
+    log(f"  losses {['%.4f' % x for x in out['losses']]}; step times "
+        f"{['%.1f' % (t * 1e3) for t in out['step_s']]} ms; {len(grad_flags)} trainable tensors "
+        f"with finite non-zero step-{grad_step} gradients; checksums trainable {t0:.6e} -> {t1:.6e}, "
+        f"frozen {f0:.6e} -> {f1:.6e}")
+    log(f"[train] {ms:.2f} ms per train step (median of steps 2-{TRAIN_STEPS}), peak "
+        f"{peak / 2**30:.2f} GiB, trainable params {out['trainable_params']:,} "
+        f"(frozen {out['frozen_params']:,}), launches per step {per_step[0]}")
+    if profile:
+        busy_ms, span_ms, n_kernels, families = device_spans(traced["prof"], 1)
+        prof = {"traced_ms_per_step": traced["ms"], "untraced_ms_per_step": ms,
+                "device_busy_ms_per_step": busy_ms, "kernels_per_step": n_kernels,
+                "idle_share_traced": 1 - busy_ms / span_ms,
+                "idle_share_estimate_untraced": 1 - busy_ms / ms,
+                "families_ms_per_step": families}
+        log(f"[profile] one train step: {json.dumps(prof)}")
+    train_launches = Counter()
+    for got in per_step:
+        train_launches.update(got)
+    steps = len(per_step)
+    seen = {k: Counter({key: n // steps for key, n in v.items()}) for k, v in rec.seen.items()}
+    return dict(ms=ms, peak=peak, launches=train_launches, seen=seen,
+                trainable=out["trainable_params"])
+
+
+_FAMILIES = (  # (family, substrings of the kernel name), first match wins
+    ("K1 flash_fwd", ("flash_fwd",)),
+    ("K5 flash_bwd", ("flash_bwd",)),
+    ("K2 temporal_fwd", ("temporal_fwd",)),
+    ("K8 temporal_bwd", ("temporal_bwd",)),
+    ("K3 group_norm", ("gn_stats", "gn_finalize", "gn_apply")),
+    ("conv (cuDNN)", ("fprop", "conv", "dgrad", "wgrad", "cudnn")),
+    ("gemm (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma")),
+    ("copy/cat", ("copy", "cat", "permute", "transpose", "memcpy", "memset")),
+    ("softmax/reduce", ("softmax", "reduce")),
+    ("optimizer (AdamW)", ("adam", "multi_tensor_apply")),
+)
+
+
+def device_spans(prof, per: int):
+    """(device-busy ms, span ms, kernels, device ms by family), each per
+    ``per`` steps, from a trace's CUDA events: busy is the union of kernel
+    intervals, span the first start to the last end."""
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy_us, reach = 0.0, spans[0][0]
+    for start, end, _ in spans:
+        busy_us += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
+    families = Counter()
+    for start, end, n in spans:
+        n = n.lower()
+        fam = next((f for f, keys in _FAMILIES if any(k in n for k in keys)),
+                   "other elementwise")
+        families[fam] += (end - start) / 1e3 / per
+    return (busy_us / 1e3 / per, (spans[-1][1] - spans[0][0]) / 1e3 / per, len(spans) / per,
+            {k: round(v, 3) for k, v in families.most_common()})
+
+
 def profile_loop(pipe, chs) -> dict:
     """One request's denoise loop (STEPS CFG steps), once untraced and once
     under torch.profiler with CUDA activity only: device time per step by
@@ -402,42 +856,53 @@ def profile_loop(pipe, chs) -> dict:
     untraced_ms = run()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         traced_ms = run()
-    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy_us, reach = 0.0, spans[0][0]
-    for start, end, _ in spans:
-        busy_us += max(0.0, end - max(start, reach))
-        reach = max(reach, end)
-    families = Counter()
-    for start, end, n in spans:
-        n = n.lower()
-        if "flash_fwd" in n:
-            fam = "K1 flash_fwd"
-        elif "temporal_fwd" in n:
-            fam = "K2 temporal_fwd"
-        elif any(k in n for k in ("gn_stats", "gn_finalize", "gn_apply")):
-            fam = "K3 group_norm"
-        elif any(k in n for k in ("fprop", "conv", "dgrad", "cudnn")):
-            fam = "conv (cuDNN)"
-        elif any(k in n for k in ("gemm", "nvjet", "cutlass", "xmma")):
-            fam = "gemm (cuBLAS)"
-        elif any(k in n for k in ("copy", "cat", "permute", "transpose", "memcpy", "memset")):
-            fam = "copy/cat"
-        elif "softmax" in n or "reduce" in n:
-            fam = "softmax/reduce"
-        else:
-            fam = "other elementwise"
-        families[fam] += (end - start) / 1e3 / STEPS
-    busy_ms = busy_us / 1e3 / STEPS
+    busy_ms, span_ms, n_kernels, families = device_spans(prof, STEPS)
     out = {"steps": STEPS, "untraced_ms_per_step": untraced_ms, "traced_ms_per_step": traced_ms,
-           "device_busy_ms_per_step": busy_ms, "kernels_per_step": len(spans) / STEPS,
-           "idle_share_traced": 1 - busy_us / (spans[-1][1] - spans[0][0]),
+           "device_busy_ms_per_step": busy_ms, "kernels_per_step": n_kernels,
+           "idle_share_traced": 1 - busy_ms / span_ms,
            "idle_share_estimate_untraced": 1 - busy_ms / untraced_ms,
-           "families_ms_per_step": {k: round(v, 3) for k, v in families.most_common()}}
+           "families_ms_per_step": families}
     log(f"[profile] denoise loop of one request: {json.dumps(out)}")
     log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25,
                                   max_name_column_width=60))
     return out
+
+
+KERNELS = [  # (name, result kind, source, TPU kernel replaced, stand-in key or None)
+    ("K1 flash_fwd", "flash", "flash_fwd.cu", "synfmc_tpu/ops/flash_attention.py:117", None),
+    ("K2 temporal_fwd", "temporal", "temporal_fwd.cu", "synfmc_tpu/ops/temporal_attention.py:75",
+     None),
+    ("K3 group_norm", "group_norm", "group_norm.cu", "synfmc_tpu/ops/pallas_groupnorm.py:58", None),
+    ("K4 flash_fwd_padded", "flash", "flash_fwd.cu", "synfmc_tpu/ops/flash_attention.py:69",
+     K47_KEY),
+    ("K5 flash_bwd", "flash_bwd", "flash_bwd.cu", "synfmc_tpu/ops/flash_attention.py:302", None),
+    ("K6 flash_bwd_qblocked", "flash_bwd", "flash_bwd.cu",
+     "synfmc_tpu/ops/flash_attention.py:254", K6_KEY),
+    ("K7 flash_bwd_padded", "flash_bwd", "flash_bwd.cu", "synfmc_tpu/ops/flash_attention.py:165",
+     K47_KEY),
+    ("K8 temporal_bwd", "temporal_bwd", "temporal_bwd.cu",
+     "synfmc_tpu/ops/temporal_attention.py:87", None),
+]
+
+
+def summarise(results, launches):
+    """One JSON entry per TPU kernel: a main-path kernel at its hottest shape
+    (count x time), a stand-in at its own shape; launches from the main-path
+    runs (serving and training; 0 for the stand-ins, which are off the path)."""
+    summary = []
+    for name, kind, src, replaces, standin in KERNELS:
+        rows = [r for r in results[kind] if (r["key"] == standin) == (standin is not None)
+                and (standin is not None or r["key"][0] not in ("k4/k7", "k6"))]
+        hot = max(rows, key=lambda r: r["per_forward"] * r["ms"])
+        summary.append({
+            "name": name, "route": "cuda", "source": f"synfmc_tpu_torch/csrc/{src}",
+            "replaces": replaces, "launches": 0 if standin else launches[kind],
+            "max_abs_err": max(r["err"] for r in rows), "max_rel_err": max(r["rel"] for r in rows),
+            "ms": hot["ms"], "plain_ms": hot["plain_ms"], "bound_ms": hot["bound_ms"],
+            "bound_by": hot["bound_by"], "library_ms": hot["library_ms"],
+            "shape": list(hot["key"][1:]),
+        })
+    return summary
 
 
 def main() -> int:
@@ -449,6 +914,7 @@ def main() -> int:
     from synfmc_tpu_torch.ops import _cuda
     from synfmc_tpu_torch.pipelines.factory import build_pipeline
 
+    profile = "--profile" in sys.argv[1:]
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
@@ -472,11 +938,12 @@ def main() -> int:
     log(f"[main] flagship cam-stage pipeline built in {time.perf_counter() - t0:.1f} s, "
         f"UNet {sum(p.numel() for p in pipe.unet.parameters()) / 1e6:.0f} M params, {pipe.unet.dtype}")
 
-    log("[kernels] shapes recorded from one full-width forward")
+    log("[kernels] shapes recorded from one full-width forward, and K4's stand-in")
     seen = record_shapes(pipe, chs)
     per_forward = {k: sum(n for key, n in v.items() if key[0] == "unet") for k, v in seen.items()}
     if per_forward != PER_FORWARD:
         raise AssertionError(f"per-forward launches {per_forward} != {PER_FORWARD}")
+    seen["flash"][K47_KEY] = 0
     results = check_kernels(seen, rates)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -484,33 +951,35 @@ def main() -> int:
     log("[compose] tiny width, 16 frames at 256x384, 2 DDIM steps, fp32: GPU vs CPU")
     compose()
 
+    log("[train-compose] tiny width, 16 frames at 256x384, 2 stage-2 steps, fp32: GPU vs CPU")
+    train_compose()
+
     log(f"[main] two requests: {FRAMES} frames {HEIGHT}x{WIDTH}, {STEPS} DDIM steps, guidance {GUIDANCE}")
     launches, step_ms, clip_s, peak = serve(pipe, chs)
     log(f"[main] {step_ms:.2f} ms per CFG denoise step (median), "
         f"{statistics.mean(clip_s):.2f} s per clip, peak {peak / 2**30:.2f} GiB")
-
-    if "--profile" in sys.argv[1:]:
+    if profile:
         profile_loop(pipe, chs)
+    del pipe
+    torch.cuda.empty_cache()
 
-    meta = {
-        "flash": ("synfmc_tpu_torch/csrc/flash_fwd.cu", "synfmc_tpu/ops/flash_attention.py:117"),
-        "temporal": ("synfmc_tpu_torch/csrc/temporal_fwd.cu",
-                     "synfmc_tpu/ops/temporal_attention.py:75"),
-        "group_norm": ("synfmc_tpu_torch/csrc/group_norm.cu",
-                       "synfmc_tpu/ops/pallas_groupnorm.py:58"),
-    }
-    summary = []
-    for kind, rows in results.items():
-        hot = max(rows, key=lambda r: r["per_forward"] * r["ms"])
-        summary.append({
-            "name": kind, "route": "cuda", "source": meta[kind][0], "replaces": meta[kind][1],
-            "launches": launches[kind], "max_abs_err": max(r["err"] for r in rows),
-            "max_rel_err": max(r["rel"] for r in rows),
-            "ms": hot["ms"], "plain_ms": hot["plain_ms"], "bound_ms": hot["bound_ms"],
-            "bound_by": hot["bound_by"], "library_ms": hot["library_ms"],
-            "shape": list(hot["key"][1:]),
-        })
-    print(json.dumps({"kernels": summary}), flush=True)
+    log(f"[train] train('cam', configs/cam.yaml): batch 1, {FRAMES} frames {HEIGHT}x{WIDTH}, "
+        f"bf16 with fp32 masters, {TRAIN_STEPS} AdamW steps")
+    tr = train_main(profile)
+    launches.update(tr["launches"])
+    torch.cuda.empty_cache()
+
+    log("[backward] kernels at the train step's recorded shapes, K6/K7 stand-ins, fp32")
+    fwd_train = {k: Counter({key: n for key, n in tr["seen"][k].items() if key not in seen[k]})
+                 for k in ("flash", "temporal", "group_norm")}
+    for kind, rows in check_kernels(fwd_train, rates, fp32=False).items():
+        results[kind] += rows
+    bwd_seen = {k: Counter(tr["seen"][k]) for k in ("flash_bwd", "temporal_bwd")}
+    bwd_seen["flash_bwd"][K6_KEY] = bwd_seen["flash_bwd"][K47_KEY] = 0
+    results.update(check_bwd(bwd_seen, rates))
+    time_gn_bwd(tr["seen"]["group_norm_bwd"], rates)
+
+    print(json.dumps({"kernels": summarise(results, launches)}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -24,3 +24,12 @@ template <typename T> __device__ __forceinline__ float round_to(float v) {
 }
 
 __host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+template <typename T> __host__ __device__ constexpr int vec_elems() { return 16 / sizeof(T); }
+
+// Shared-memory row stride (elements) with an odd number of 32-bit words, so
+// that rows read one per thread fall on distinct banks.
+template <typename T> __host__ __device__ inline int row_stride(int D) {
+  const int words = D * (int)sizeof(T) / 4;
+  return (words % 2 == 1) ? D : D + 4 / (int)sizeof(T);
+}

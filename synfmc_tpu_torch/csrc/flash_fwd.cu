@@ -26,87 +26,27 @@
 // The head dim is padded with zeros to a multiple of 16 (40 -> 48) and is a
 // template parameter, so any D that is a multiple of 8 up to 256 works.
 //
+// When a gradient is wanted the kernel also writes each row's log-sum-exp
+// m + log(l) in fp32 to lse (B, H, S), so that the backward (flash_bwd.cu)
+// recomputes P = exp(S - lse) without a second softmax pass.
+//
 // fp32: a CUDA-core kernel (one thread per query row, K/V tiles in shared
 // memory) with the same online softmax, for exact float32 checks.
-#include "common.cuh"
+#include "mma.cuh"
 
 namespace {
+
+using namespace synfmc;
 
 constexpr int BQ = 64;   // query rows per block: 4 warps x 16
 constexpr int BK = 64;   // keys per K/V tile
 constexpr int kWarps = BQ / 16;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// Four 8x8 b16 matrices from shared memory; lane l supplies the row address
-// of matrix l / 8 and receives row l / 4, columns 2*(l % 4) and +1 of each.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// The same, transposed: lane l receives rows 2*(l % 4) and +1 of column l / 4.
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// c (16x8 fp32) += a (16x16 bf16, row) * b (16x8 bf16, col).  Fragment
-// layout (PTX ISA, mma.m16n8k16): with g = lane / 4, t = lane % 4, a holds
-// rows g / g+8 x columns 2t, 2t+1 (+8); b holds rows 2t, 2t+1 (+8) x column g;
-// c holds rows g (c0, c1) and g+8 (c2, c3) x columns 2t, 2t+1.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 16-byte asynchronous copy; zero-fills the destination when !valid.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n"); }
-template <int N> __device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Shared row stride: DP + 8 elements keeps rows 16-byte aligned and puts the
-// 8 rows an ldmatrix reads on distinct banks.
-template <int DP> __host__ __device__ constexpr int lds() { return DP + 8; }
-
-// rows [row0, row0 + BK) of one head slice -> shared [BK][lds], zero past S and D.
-template <int DP>
-__device__ __forceinline__ void load_kv(const __nv_bfloat16* __restrict__ src,
-                                        __nv_bfloat16* dst, int row0, int S, int C, int col0,
-                                        int D) {
-  constexpr int VPR = DP / 8;
-  for (int e = threadIdx.x; e < BK * VPR; e += blockDim.x) {
-    const int r = e / VPR, dv = e % VPR;
-    const int row = row0 + r;
-    const bool ok = row < S && dv * 8 < D;
-    cp_async16(dst + r * lds<DP>() + dv * 8, ok ? src + (size_t)row * C + col0 + dv * 8 : src,
-               ok);
-  }
-}
-
 template <int DP>
 __global__ void __launch_bounds__(kWarps * 32)
     flash_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int S,
-                   int H, int D, float scale) {
+                   const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                   float* __restrict__ lse, int S, int H, int D, float scale) {
   constexpr int LDS = lds<DP>();
   extern __shared__ __align__(128) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BQ][LDS]
@@ -120,22 +60,11 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int g = lane >> 2, t = lane & 3;
   const int nk = cdiv(S, BK);
 
-  load_kv<DP>(k + base, Ks, 0, S, C, h * D, D);
-  load_kv<DP>(v + base, Vs, 0, S, C, h * D, D);
+  load_tile<DP, BK>(k + base, Ks, 0, S, C, h * D, D);
+  load_tile<DP, BK>(v + base, Vs, 0, S, C, h * D, D);
   cp_commit();
   // Q tile, multiplied by the scale in bf16 as the TPU kernel does
-  for (int e = threadIdx.x; e < BQ * (DP / 8); e += blockDim.x) {
-    const int r = e / (DP / 8), dv = e % (DP / 8);
-    const int row = q0 + r;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row < S && dv * 8 < D) {
-      val = *reinterpret_cast<const uint4*>(q + base + (size_t)row * C + h * D + dv * 8);
-      __nv_bfloat16* el = reinterpret_cast<__nv_bfloat16*>(&val);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) el[j] = __float2bfloat16(__bfloat162float(el[j]) * scale);
-    }
-    *reinterpret_cast<uint4*>(Qs + r * LDS + dv * 8) = val;
-  }
+  load_tile_scaled<DP, BQ>(q + base, Qs, q0, S, C, h * D, D, scale);
 
   float acc[DP / 8][4];
 #pragma unroll
@@ -145,8 +74,8 @@ __global__ void __launch_bounds__(kWarps * 32)
   for (int kt = 0; kt < nk; ++kt) {
     const int buf = kt & 1;
     if (kt + 1 < nk) {  // prefetch the next tile into the other buffer
-      load_kv<DP>(k + base, Ks + (buf ^ 1) * BK * LDS, (kt + 1) * BK, S, C, h * D, D);
-      load_kv<DP>(v + base, Vs + (buf ^ 1) * BK * LDS, (kt + 1) * BK, S, C, h * D, D);
+      load_tile<DP, BK>(k + base, Ks + (buf ^ 1) * BK * LDS, (kt + 1) * BK, S, C, h * D, D);
+      load_tile<DP, BK>(v + base, Vs + (buf ^ 1) * BK * LDS, (kt + 1) * BK, S, C, h * D, D);
       cp_commit();
       cp_wait<1>();
     } else {
@@ -236,6 +165,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   for (int r = 0; r < 2; ++r) {
     const int row = q0 + warp * 16 + g + 8 * r;
     if (row >= S) continue;
+    if (lse != nullptr && t == 0) lse[((size_t)b * H + h) * S + row] = m_run[r] + logf(l_run[r]);
     __nv_bfloat16* orow = o + base + (size_t)row * C + h * D;
 #pragma unroll
     for (int n = 0; n < DP / 8; ++n) {
@@ -253,8 +183,8 @@ constexpr int FK = 32;  // keys per tile
 
 __global__ void __launch_bounds__(FQ)
     flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, float* __restrict__ o, int S, int H, int D,
-                  float scale) {
+                  const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                  int S, int H, int D, float scale) {
   extern __shared__ __align__(16) float fsm[];
   const int ldq = D + 1;  // odd stride: per-thread rows on distinct banks
   float* Qs = fsm;
@@ -313,6 +243,7 @@ __global__ void __launch_bounds__(FQ)
   }
   const float inv = 1.f / l_run;
   for (int d = 0; d < D; ++d) Os[t * ldq + d] *= inv;
+  if (lse != nullptr && q0 + t < S) lse[((size_t)b * H + h) * S + q0 + t] = m_run + logf(l_run);
   __syncthreads();
   for (int e = t; e < FQ * D; e += blockDim.x) {
     const int rr = e / D, d = e % D;
@@ -320,51 +251,46 @@ __global__ void __launch_bounds__(FQ)
   }
 }
 
-cudaError_t set_smem(const void* fn, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
 }  // namespace
 
 template <int DP>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int S, int H, int D,
-                float scale, cudaStream_t stream) {
+int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
+                int H, int D, float scale, cudaStream_t stream) {
   const size_t smem = (size_t)(BQ + 4 * BK) * lds<DP>() * sizeof(__nv_bfloat16);
   cudaError_t e = set_smem((const void*)flash_fwd_bf16<DP>, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(cdiv(S, BQ), H, B);
   flash_fwd_bf16<DP><<<grid, kWarps * 32, smem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (__nv_bfloat16*)o, S, H, D, scale);
+      (__nv_bfloat16*)o, lse, S, H, D, scale);
   return (int)cudaGetLastError();
 }
 
 // q, k, v, o: (B, S, H*D) contiguous, 16-byte aligned; D % 8 == 0, D <= 256.
+// lse: (B, H, S) fp32, or null when no gradient is wanted.
 SYNFMC_API int synfmc_flash_fwd_bf16(const void* q, const void* k, const void* v, void* o,
-                                     int B, int S, int H, int D, float scale, void* stream) {
+                                     float* lse, int B, int S, int H, int D, float scale,
+                                     void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   switch (cdiv(D, 16) * 16) {  // head dim padded to the mma depth
 #define SYNFMC_CASE(DP) \
   case DP:              \
-    return launch_bf16<DP>(q, k, v, o, B, S, H, D, scale, st);
-    SYNFMC_CASE(16) SYNFMC_CASE(32) SYNFMC_CASE(48) SYNFMC_CASE(64) SYNFMC_CASE(80)
-    SYNFMC_CASE(96) SYNFMC_CASE(112) SYNFMC_CASE(128) SYNFMC_CASE(144) SYNFMC_CASE(160)
-    SYNFMC_CASE(176) SYNFMC_CASE(192) SYNFMC_CASE(208) SYNFMC_CASE(224) SYNFMC_CASE(240)
-    SYNFMC_CASE(256)
+    return launch_bf16<DP>(q, k, v, o, lse, B, S, H, D, scale, st);
+    SYNFMC_FOR_EACH_DP(SYNFMC_CASE)
 #undef SYNFMC_CASE
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-SYNFMC_API int synfmc_flash_fwd_f32(const void* q, const void* k, const void* v, void* o, int B,
-                                    int S, int H, int D, float scale, void* stream) {
+SYNFMC_API int synfmc_flash_fwd_f32(const void* q, const void* k, const void* v, void* o,
+                                    float* lse, int B, int S, int H, int D, float scale,
+                                    void* stream) {
   const size_t smem = (size_t)(2 * FQ * (D + 1) + 2 * FK * D) * sizeof(float);
   cudaError_t e = set_smem((const void*)flash_fwd_f32, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(cdiv(S, FQ), H, B);
   flash_fwd_f32<<<grid, FQ, smem, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, S, H, D, scale);
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, S, H, D, scale);
   return (int)cudaGetLastError();
 }

@@ -24,14 +24,6 @@
 
 namespace {
 
-template <typename T> __host__ __device__ constexpr int vec_elems() { return 16 / sizeof(T); }
-
-// Shared-memory row stride (elements) with an odd number of 32-bit words.
-template <typename T> __host__ __device__ inline int row_stride(int D) {
-  const int words = D * (int)sizeof(T) / 4;
-  return (words % 2 == 1) ? D : D + 4 / (int)sizeof(T);
-}
-
 template <typename T, int MAXF>
 __global__ void temporal_fwd(const T* __restrict__ q, const T* __restrict__ k,
                              const T* __restrict__ v, T* __restrict__ o, int items, int F,

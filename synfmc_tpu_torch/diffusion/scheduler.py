@@ -1,4 +1,5 @@
-"""Noise schedule and deterministic DDIM sampling (eta = 0, epsilon prediction).
+"""Noise schedule: DDPM training utilities and deterministic DDIM sampling
+(eta = 0, epsilon prediction).
 
 The alpha table is float64 on the host and enters the update as fp32, like
 the JAX package; eps and x are fp32 in the update.
@@ -34,6 +35,21 @@ class DiffusionSchedule:
         return cls(num_train_timesteps=num_train_timesteps,
                    alphas_cumprod=np.cumprod(1.0 - betas), steps_offset=steps_offset,
                    clip_sample=clip_sample)
+
+    def add_noise(self, x0: torch.Tensor, noise: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """sqrt(abar_t) x0 + sqrt(1 - abar_t) noise (DDPMScheduler.add_noise);
+        t: (B,) int timesteps; the coefficients are cast to x0's type."""
+        abar = torch.as_tensor(self.alphas_cumprod.astype(np.float32), device=x0.device)[
+            t.to(x0.device).long()]
+        shape = (-1,) + (1,) * (x0.dim() - 1)
+        sqrt_abar = torch.sqrt(abar).reshape(shape).to(x0.dtype)
+        sqrt_1m = torch.sqrt(1.0 - abar).reshape(shape).to(x0.dtype)
+        return sqrt_abar * x0 + sqrt_1m * noise
+
+    def sample_timesteps(self, generator: torch.Generator, batch: int) -> torch.Tensor:
+        """(B,) uniform integer timesteps in [0, num_train_timesteps)."""
+        return torch.randint(0, self.num_train_timesteps, (batch,), generator=generator,
+                             device=generator.device)
 
     @property
     def init_noise_sigma(self) -> float:

@@ -8,17 +8,26 @@ product can round the pose signal.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
 def plucker_embedding(intrinsics: torch.Tensor, c2w: torch.Tensor, height: int,
-                      width: int) -> torch.Tensor:
-    """intrinsics (B, F, 4), c2w (B, F, 4, 4) -> (B, F, height, width, 6) fp32."""
+                      width: int, flip_flag: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """intrinsics (B, F, 4), c2w (B, F, 4, 4) -> (B, F, height, width, 6) fp32.
+
+    ``flip_flag`` (B,) bool: horizontally flipped samples use mirrored pixel
+    x coordinates, W - 0.5 - arange(W) (the reference ray_condition's flip)."""
     intrinsics = intrinsics.float()
     c2w = c2w.float()
     dev = c2w.device
     b, f = intrinsics.shape[:2]
     i = (torch.arange(width, dtype=torch.float32, device=dev) + 0.5)[None, None, None, :]  # x
+    if flip_flag is not None:
+        mirrored = width - 0.5 - torch.arange(width, dtype=torch.float32, device=dev)
+        flip = torch.as_tensor(flip_flag, device=dev).bool()[:, None, None, None]
+        i = torch.where(flip, mirrored[None, None, None, :], i)
     j = (torch.arange(height, dtype=torch.float32, device=dev) + 0.5)[:, None]  # y
     fx, fy, cx, cy = [intrinsics[..., k][..., None, None] for k in range(4)]  # (B,F,1,1)
     shape = (b, f, height, width)

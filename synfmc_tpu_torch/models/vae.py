@@ -2,8 +2,8 @@
 
 block_out_channels (128, 256, 512, 512), 2 resnets per encoder level and 3
 per decoder level, GN(32, eps 1e-6), single-head mid-block attention,
-quant/post_quant 1x1 convs, scaling factor 0.18215.  The serving path uses
-only ``decode``; the encoder comes along because it reuses the same blocks.
+quant/post_quant 1x1 convs, scaling factor 0.18215.  Serving uses
+``decode``; training encodes each frame to a sampled latent with ``encode``.
 """
 
 from __future__ import annotations
@@ -134,6 +134,15 @@ class AutoencoderKL(nn.Module):
         """(N, H, W, 3) in [-1, 1] -> (mean, logvar), each (N, H/8, W/8, 4)."""
         mean, logvar = self.quant_conv(self.encoder(x.to(self.dtype))).chunk(2, dim=-1)
         return mean, logvar.clamp(-30.0, 20.0)
+
+    def encode(self, x, eps: Optional[torch.Tensor] = None):
+        """(N, H, W, 3) in [-1, 1] -> (N, H/8, W/8, 4) latents times the scaling
+        factor: the sampled latent mean + exp(logvar / 2) * eps when ``eps``
+        (a standard-normal draw of the latent's shape) is given, else the mean."""
+        mean, logvar = self.encode_moments(x)
+        if eps is not None:
+            mean = mean + torch.exp(0.5 * logvar) * eps.to(mean.dtype)
+        return mean * SD_VAE_SCALING
 
     def decode(self, z):
         """(N, h, w, 4) scaled latents -> (N, 8h, 8w, 3); divides the scaling factor."""

@@ -21,7 +21,7 @@ import threading
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("flash_fwd", "temporal_fwd", "group_norm")
+SOURCES = ("flash_fwd", "flash_bwd", "temporal_fwd", "temporal_bwd", "group_norm")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

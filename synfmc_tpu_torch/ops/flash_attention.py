@@ -1,13 +1,23 @@
-"""Flash attention forward on the packed layout: the wrapper of CUDA kernel K1
-and its plain version.
+"""Flash attention on the packed layout: the wrappers of CUDA kernels K1
+(forward) and K5-K7 (backward), their plain versions, and the autograd
+Function that joins them.
 
-Replaces synfmc_tpu/ops/flash_attention.py:_fwd_packed_kernel.  The kernel
-(csrc/flash_fwd.cu) is bound by operations at the UNet's shapes; it streams
-K/V tiles through shared memory with an online softmax, because one head's
-K/V at S=1536 no longer fits a block's shared memory as it fit the TPU's VMEM.
+The forward replaces synfmc_tpu/ops/flash_attention.py:_fwd_packed_kernel
+(and, since its tiles mask any sequence length, the padded _fwd_kernel).  The
+kernel (csrc/flash_fwd.cu) is bound by operations at the UNet's shapes; it
+streams K/V tiles through shared memory with an online softmax, because one
+head's K/V at S=1536 no longer fits a block's shared memory as it fit the
+TPU's VMEM.  When a gradient is wanted it also writes each row's fp32
+log-sum-exp, so the backward recomputes P without a second softmax.
 
-On a CPU tensor the wrapper runs :func:`flash_attention_plain`; on a CUDA
-tensor it launches the kernel or raises.
+The backward replaces _bwd_packed_single_kernel, _bwd_packed_kernel and the
+padded _bwd_kernel with one kernel set (csrc/flash_bwd.cu): a pass for
+delta = rowsum(dO*O), one block per key tile for dK/dV, one per query tile
+for dQ.  Nothing carries over between blocks, so there is no whole-sequence
+limit and no atomics.
+
+On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
+launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -20,7 +30,7 @@ MAX_HEAD_DIM = 256
 
 
 def flash_supported(q) -> bool:
-    """Shapes the kernel takes: (B, S, H, D) with D % 8 == 0 and D <= 256.
+    """Shapes the kernels take: (B, S, H, D) with D % 8 == 0 and D <= 256.
 
     The TPU gate's VMEM terms (resident K/V bytes, the 16384-token cap) do
     not apply: K/V are streamed."""
@@ -30,21 +40,50 @@ def flash_supported(q) -> bool:
     return d <= MAX_HEAD_DIM and d % 8 == 0
 
 
+def _heads(x2, heads):
+    b, s, c = x2.shape
+    return x2.float().reshape(b, s, heads, c // heads).transpose(1, 2)
+
+
+def _merge(xh, dtype):
+    b, h, s, d = xh.shape
+    return xh.transpose(1, 2).reshape(b, s, h * d).to(dtype)
+
+
 def flash_attention_plain(q2, k2, v2, scale: float, heads: int) -> torch.Tensor:
     """_fwd_packed_kernel's math on (B, S, H*D): q scaled in its own type,
     fp32 logits and softmax, P cast to v's type for PV (fp32 accumulation),
     the denominator dividing the output."""
-    b, sq, c = q2.shape
-    sk = k2.shape[1]
-    d = c // heads
-    qh = (q2.float() * scale).to(q2.dtype).float().reshape(b, sq, heads, d).transpose(1, 2)
-    kh = k2.float().reshape(b, sk, heads, d).transpose(1, 2)
-    vh = v2.float().reshape(b, sk, heads, d).transpose(1, 2)
-    logits = qh @ kh.transpose(-1, -2)
+    qh = _heads((q2.float() * scale).to(q2.dtype), heads)
+    logits = qh @ _heads(k2, heads).transpose(-1, -2)
     p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
     den = p.sum(dim=-1, keepdim=True)
-    o = (p.to(v2.dtype).float() @ vh) / den
-    return o.transpose(1, 2).reshape(b, sq, c).to(q2.dtype)
+    o = (p.to(v2.dtype).float() @ _heads(v2, heads)) / den
+    return _merge(o, q2.dtype)
+
+
+def flash_attention_bwd_plain(q2, k2, v2, do2, scale: float, heads: int):
+    """_bwd_packed_single_kernel's math on (B, S, H*D) -> (dq, dk, dv):
+    q' = q*scale, unnormalised fp32 P, dO_n = dO/den,
+    dS = P * (dO_n V^T - rowsum(dO_n * O)), with P, dO_n and dS cast to the
+    operand type before their matmuls and dQ scaled on the way out."""
+    dt = v2.dtype
+    cast = lambda x: x.to(dt).float()
+    q = _heads((q2.float() * scale).to(q2.dtype), heads)  # q'
+    k, v = _heads(k2, heads), _heads(v2, heads)
+    logits = q @ k.transpose(-1, -2)
+    pu = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    den = pu.sum(dim=-1, keepdim=True)
+    puc = cast(pu)
+    don = _heads(do2, heads) / den
+    donc = cast(don)
+    dp = donc @ v.transpose(-1, -2)
+    delta = (don * (puc @ v)).sum(dim=-1, keepdim=True) / den
+    dsc = cast(pu * (dp - delta))
+    dq = (dsc @ k) * scale
+    dk = dsc.transpose(-1, -2) @ q
+    dv = puc.transpose(-1, -2) @ donc
+    return _merge(dq, q2.dtype), _merge(dk, k2.dtype), _merge(dv, v2.dtype)
 
 
 def _check_cuda(name, tensors, dtype):
@@ -61,28 +100,89 @@ def _check_cuda(name, tensors, dtype):
         raise TypeError(f"{name}: dtype {dtype} not supported")
 
 
-def flash_attention(q2, k2, v2, scale: float, heads: int) -> torch.Tensor:
-    """Self-attention on packed (B, S, H*D) tensors -> (B, S, H*D)."""
+def _check_shapes(name, q2, others, heads):
     b, s, c = q2.shape
-    if k2.shape != q2.shape or v2.shape != q2.shape:
-        raise ValueError("flash_attention: q, k, v must share one (B, S, H*D) shape")
+    if any(t.shape != q2.shape for t in others):
+        raise ValueError(f"{name}: operands must share one (B, S, H*D) shape")
     if c % heads:
-        raise ValueError(f"flash_attention: {c} channels not divisible by {heads} heads")
+        raise ValueError(f"{name}: {c} channels not divisible by {heads} heads")
     d = c // heads
+    if q2.device.type != "cpu" and (d % 8 or d > MAX_HEAD_DIM):
+        raise ValueError(f"{name}: head dim {d} must be a multiple of 8 <= {MAX_HEAD_DIM}")
+    return b, s, d
+
+
+def _stream(x):
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def flash_attention_fwd(q2, k2, v2, scale: float, heads: int, with_lse: bool = False):
+    """K1: (out, lse) with lse the fp32 (B, H, S) log-sum-exp of the scaled
+    logits when ``with_lse`` (None otherwise, and always None on the CPU,
+    whose plain backward recomputes the softmax)."""
+    b, s, d = _check_shapes("flash_attention", q2, (k2, v2), heads)
     if q2.device.type == "cpu":
-        return flash_attention_plain(q2, k2, v2, scale, heads)
-    if d % 8 or d > MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention: head dim {d} must be a multiple of 8 <= {MAX_HEAD_DIM}")
+        return flash_attention_plain(q2, k2, v2, scale, heads), None
     _check_cuda("flash_attention", (q2, k2, v2), q2.dtype)
     name = "synfmc_flash_fwd_bf16" if q2.dtype == torch.bfloat16 else "synfmc_flash_fwd_f32"
     P, I, F32 = _cuda.P, _cuda.I, _cuda.F32
-    fn = _cuda.entry("flash_fwd", name, [P, P, P, P, I, I, I, I, F32, P])
+    fn = _cuda.entry("flash_fwd", name, [P, P, P, P, P, I, I, I, I, F32, P])
     out = torch.empty_like(q2)
-    err = fn(q2.data_ptr(), k2.data_ptr(), v2.data_ptr(), out.data_ptr(), b, s, heads, d,
-             float(scale), torch.cuda.current_stream(q2.device).cuda_stream)
+    lse = (torch.empty((b, heads, s), device=q2.device, dtype=torch.float32)
+           if with_lse else None)
+    err = fn(q2.data_ptr(), k2.data_ptr(), v2.data_ptr(), out.data_ptr(),
+             lse.data_ptr() if with_lse else None, b, s, heads, d, float(scale), _stream(q2))
     _cuda.check(err, "flash_attention")
     flash_attention.launches += 1
-    return out
+    return out, lse
+
+
+def flash_attention_bwd(q2, k2, v2, out, lse, do2, scale: float, heads: int):
+    """K5/K6/K7: (dq, dk, dv) of the packed attention, from K1's output and
+    log-sum-exp on a CUDA tensor, from the plain recompute on a CPU one."""
+    b, s, d = _check_shapes("flash_attention_bwd", q2, (k2, v2, do2), heads)
+    if q2.device.type == "cpu":
+        return flash_attention_bwd_plain(q2, k2, v2, do2, scale, heads)
+    _check_cuda("flash_attention_bwd", (q2, k2, v2, out, do2), q2.dtype)
+    if lse is None or lse.dtype != torch.float32 or tuple(lse.shape) != (b, heads, s):
+        raise ValueError("flash_attention_bwd: needs K1's fp32 (B, H, S) log-sum-exp")
+    lse = lse.contiguous()
+    name = "synfmc_flash_bwd_bf16" if q2.dtype == torch.bfloat16 else "synfmc_flash_bwd_f32"
+    P, I, F32 = _cuda.P, _cuda.I, _cuda.F32
+    fn = _cuda.entry("flash_bwd", name, [P] * 10 + [I, I, I, I, F32, P])
+    dq, dk, dv = torch.empty_like(q2), torch.empty_like(k2), torch.empty_like(v2)
+    delta = torch.empty_like(lse)
+    err = fn(q2.data_ptr(), k2.data_ptr(), v2.data_ptr(), out.data_ptr(),
+             lse.data_ptr(), do2.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+             dk.data_ptr(), dv.data_ptr(), b, s, heads, d, float(scale), _stream(q2))
+    _cuda.check(err, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q2, k2, v2, scale, heads):
+        out, lse = flash_attention_fwd(q2, k2, v2, scale, heads, with_lse=True)
+        ctx.save_for_backward(q2, k2, v2, out, lse)
+        ctx.scale, ctx.heads = scale, heads
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q2, k2, v2, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q2, k2, v2, out, lse, dout.contiguous(),
+                                         ctx.scale, ctx.heads)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q2, k2, v2, scale: float, heads: int) -> torch.Tensor:
+    """Self-attention on packed (B, S, H*D) tensors -> (B, S, H*D),
+    differentiable when an operand requires grad."""
+    if torch.is_grad_enabled() and (q2.requires_grad or k2.requires_grad or v2.requires_grad):
+        return _FlashAttention.apply(q2, k2, v2, scale, heads)
+    return flash_attention_fwd(q2, k2, v2, scale, heads)[0]
 
 
 flash_attention.launches = 0
+flash_attention_bwd.launches = 0

@@ -1,11 +1,16 @@
-"""Fused GroupNorm(+activation): the wrapper of CUDA kernel K3 and its plain version.
+"""Fused GroupNorm(+activation): the wrapper of CUDA kernel K3, its plain
+version, and the autograd Function around it.
 
 Replaces synfmc_tpu/ops/pallas_groupnorm.py:_gn_kernel.  The kernel
 (csrc/group_norm.cu) is bound by bytes; it splits each sample's reduction
 over many blocks (partial fp32 sums, a finalize step, one normalise pass)
 so that a VAE slab of 12.6 M elements in 32 groups still fills the card.
 
-On a CPU tensor the wrapper runs :func:`group_norm_plain`; on a CUDA tensor
+The backward is PyTorch ops on both devices (:func:`group_norm_bwd`), as the
+JAX package's _fused_gn_bwd differentiates its XLA path: there is no
+backward kernel to port.
+
+On a CPU tensor the forward runs :func:`group_norm_plain`; on a CUDA tensor
 it launches the kernel or raises.
 """
 
@@ -47,9 +52,39 @@ def _chunks(n: int, s: int) -> int:
     return max(1, min(s, -(-_TARGET_BLOCKS // n)))
 
 
-def fused_group_norm(x, scale, bias, num_groups: int, eps: float = 1e-5,
-                     act: Optional[str] = None) -> torch.Tensor:
-    """x: (N, ..., C) channel-last, contiguous -> same shape; per-sample
+def group_norm_bwd(x, scale, bias, dout, num_groups: int, eps: float = 1e-5,
+                   act: Optional[str] = None, affine: bool = True):
+    """The VJP of :func:`group_norm_plain` in fp32 -> (dx, dscale, dbias);
+    dscale and dbias are None unless ``affine``."""
+    n, c = x.shape[0], x.shape[-1]
+    cg = c // num_groups
+    xg = x.reshape(n, -1, num_groups, cg).float()
+    m1 = xg.mean(dim=(1, 3), keepdim=True)
+    m2 = (xg * xg).mean(dim=(1, 3), keepdim=True)
+    rstd = torch.rsqrt(m2 - m1 * m1 + eps)  # (n, 1, g, 1)
+    xhat = (xg - m1) * rstd
+    gamma = scale.float().reshape(num_groups, cg)
+    dz = dout.reshape(xg.shape).float()
+    if act is not None:
+        z = xhat * gamma + bias.float().reshape(num_groups, cg)
+        if act == "silu":
+            sig = torch.sigmoid(z)
+            dz = dz * sig * (1 + z * (1 - sig))
+        else:
+            dz = dz * (z > 0)
+    dxhat = dz * gamma
+    dx = rstd * (dxhat - dxhat.mean(dim=(1, 3), keepdim=True)
+                 - xhat * (dxhat * xhat).mean(dim=(1, 3), keepdim=True))
+    dx = dx.reshape(x.shape).to(x.dtype)
+    if not affine:
+        return dx, None, None
+    dscale = (dz * xhat).sum(dim=(0, 1)).reshape(c).to(scale.dtype)
+    return dx, dscale, dz.sum(dim=(0, 1)).reshape(c).to(bias.dtype)
+
+
+def fused_group_norm_fwd(x, scale, bias, num_groups: int, eps: float = 1e-5,
+                         act: Optional[str] = None) -> torch.Tensor:
+    """K3: x (N, ..., C) channel-last, contiguous -> same shape; per-sample
     group statistics (torch.nn.GroupNorm semantics)."""
     n, c = x.shape[0], x.shape[-1]
     if c % num_groups:
@@ -83,6 +118,31 @@ def fused_group_norm(x, scale, bias, num_groups: int, eps: float = 1e-5,
     _cuda.check(err, "group_norm")
     fused_group_norm.launches += 1
     return out
+
+
+class _GroupNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, bias, num_groups, eps, act):
+        ctx.save_for_backward(x, scale, bias)
+        ctx.cfg = (num_groups, eps, act)
+        return fused_group_norm_fwd(x, scale, bias, num_groups, eps, act)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, scale, bias = ctx.saved_tensors
+        affine = ctx.needs_input_grad[1] or ctx.needs_input_grad[2]
+        dx, dscale, dbias = group_norm_bwd(x, scale, bias, dout, *ctx.cfg, affine=affine)
+        return dx, dscale, dbias, None, None, None
+
+
+def fused_group_norm(x, scale, bias, num_groups: int, eps: float = 1e-5,
+                     act: Optional[str] = None) -> torch.Tensor:
+    """GroupNorm(+act) over the trailing channel axis of a contiguous
+    (N, ..., C) tensor, differentiable when an operand requires grad."""
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad
+                                    or bias.requires_grad):
+        return _GroupNorm.apply(x, scale, bias, num_groups, eps, act)
+    return fused_group_norm_fwd(x, scale, bias, num_groups, eps, act)
 
 
 fused_group_norm.launches = 0

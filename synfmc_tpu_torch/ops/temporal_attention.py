@@ -1,12 +1,18 @@
-"""Packed temporal self-attention: the wrapper of CUDA kernel K2 and its plain version.
+"""Packed temporal self-attention: the wrappers of CUDA kernels K2 (forward)
+and K8 (backward), their plain versions, and the autograd Function that
+joins them.
 
-Replaces synfmc_tpu/ops/temporal_attention.py:_fwd_kernel.  The kernel
-(csrc/temporal_fwd.cu) is bound by bytes: rows are independent, a block loads
-its rows' head slices once into shared memory and keeps each query's F
-logits in registers.
+The forward replaces synfmc_tpu/ops/temporal_attention.py:_fwd_kernel.  The
+kernel (csrc/temporal_fwd.cu) is bound by bytes: rows are independent, a
+block loads its rows' head slices once into shared memory and keeps each
+query's F logits in registers.
 
-On a CPU tensor the wrapper runs :func:`temporal_attention_plain`; on a CUDA
-tensor it launches the kernel or raises.
+The backward replaces _bwd_kernel with csrc/temporal_bwd.cu: the same row
+independence, so each block recomputes its rows' F x F softmax and writes
+dQ, dK and dV without any cross-block sum.
+
+On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
+launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -14,13 +20,13 @@ from __future__ import annotations
 import torch
 
 from synfmc_tpu_torch.ops import _cuda
-from synfmc_tpu_torch.ops.flash_attention import _check_cuda
+from synfmc_tpu_torch.ops.flash_attention import _check_cuda, _stream
 
 MAX_FRAMES = 64
 
 
 def temporal_supported(q2, heads: int) -> bool:
-    """ops/temporal_attention.py:temporal_supported, plus the kernel's own
+    """ops/temporal_attention.py:temporal_supported, plus the kernels' own
     limits (F <= 64, head dim a multiple of 8)."""
     if q2.dim() != 3:
         return False
@@ -30,41 +36,107 @@ def temporal_supported(q2, heads: int) -> bool:
     return f >= 2 and n >= 8 and n % 8 == 0
 
 
+def _heads(x2, heads):
+    n, f, c = x2.shape
+    return x2.float().reshape(n, f, heads, c // heads)
+
+
 def temporal_attention_plain(q2, k2, v2, scale: float, heads: int) -> torch.Tensor:
     """The packed-layout reference (_xla_ref): fp32 throughout."""
-    n, f, c = q2.shape
-    d = c // heads
-    q = q2.float().reshape(n, f, heads, d)
-    k = k2.float().reshape(n, f, heads, d)
-    v = v2.float().reshape(n, f, heads, d)
-    logits = torch.einsum("nfhd,nghd->nhfg", q, k) * scale
-    p = torch.softmax(logits, dim=-1)
-    out = torch.einsum("nhfg,nghd->nfhd", p, v)
-    return out.reshape(n, f, c).to(q2.dtype)
+    q, k, v = _heads(q2, heads), _heads(k2, heads), _heads(v2, heads)
+    p = torch.softmax(torch.einsum("nfhd,nghd->nhfg", q, k) * scale, dim=-1)
+    return torch.einsum("nhfg,nghd->nfhd", p, v).reshape(q2.shape).to(q2.dtype)
 
 
-def temporal_attention(q2, k2, v2, scale: float, heads: int) -> torch.Tensor:
-    """Self-attention over F positions of each of N rows, (N, F, H*D)."""
+def temporal_attention_bwd_plain(q2, k2, v2, do2, scale: float, heads: int):
+    """_bwd_kernel's math -> (dq, dk, dv): the normalised fp32 P,
+    delta = rowsum(dO * (P V)) with P cast to v's type for the recomputed
+    fp32 output, dS = P * (dO V^T - delta) * scale, dS and P cast to the operand
+    type before the products, dK and dV contracted over the queries."""
+    cast = lambda x, t: x.to(t.dtype).float()
+    q, k, v = _heads(q2, heads), _heads(k2, heads), _heads(v2, heads)
+    do = _heads(do2, heads)
+    p = torch.softmax(torch.einsum("nfhd,nghd->nhfg", q, k) * scale, dim=-1)
+    dp = torch.einsum("nfhd,nghd->nhfg", do, v)
+    o = torch.einsum("nhfg,nghd->nfhd", cast(p, v2), v)
+    delta = (do * o).sum(-1).permute(0, 2, 1)[..., None]  # (n, h, f, 1)
+    ds = p * (dp - delta) * scale
+    dq = torch.einsum("nhfg,nghd->nfhd", cast(ds, k2), k)
+    dk = torch.einsum("nhfg,nfhd->nghd", cast(ds, q2), q)
+    dv = torch.einsum("nhfg,nfhd->nghd", cast(p, do2), cast(do, do2))
+    shape = q2.shape
+    return (dq.reshape(shape).to(q2.dtype), dk.reshape(shape).to(k2.dtype),
+            dv.reshape(shape).to(v2.dtype))
+
+
+def _check_shapes(name, q2, others, heads):
     n, f, c = q2.shape
-    if k2.shape != q2.shape or v2.shape != q2.shape:
-        raise ValueError("temporal_attention: q, k, v must share one (N, F, H*D) shape")
+    if any(t.shape != q2.shape for t in others):
+        raise ValueError(f"{name}: operands must share one (N, F, H*D) shape")
     if c % heads:
-        raise ValueError(f"temporal_attention: {c} channels not divisible by {heads} heads")
+        raise ValueError(f"{name}: {c} channels not divisible by {heads} heads")
     d = c // heads
+    if q2.device.type != "cpu" and (f > MAX_FRAMES or d % 8):
+        raise ValueError(f"{name}: needs F <= {MAX_FRAMES} and D % 8 == 0, got F={f} D={d}")
+    return n, f, d
+
+
+def temporal_attention_fwd(q2, k2, v2, scale: float, heads: int) -> torch.Tensor:
+    """K2: self-attention over F positions of each of N rows, (N, F, H*D)."""
+    n, f, d = _check_shapes("temporal_attention", q2, (k2, v2), heads)
     if q2.device.type == "cpu":
         return temporal_attention_plain(q2, k2, v2, scale, heads)
-    if f > MAX_FRAMES or d % 8:
-        raise ValueError(f"temporal_attention: needs F <= {MAX_FRAMES} and D % 8 == 0, got F={f} D={d}")
     _check_cuda("temporal_attention", (q2, k2, v2), q2.dtype)
     name = "synfmc_temporal_fwd_bf16" if q2.dtype == torch.bfloat16 else "synfmc_temporal_fwd_f32"
     P, I, F32 = _cuda.P, _cuda.I, _cuda.F32
     fn = _cuda.entry("temporal_fwd", name, [P, P, P, P, I, I, I, I, F32, P])
     out = torch.empty_like(q2)
     err = fn(q2.data_ptr(), k2.data_ptr(), v2.data_ptr(), out.data_ptr(), n, f, heads, d,
-             float(scale), torch.cuda.current_stream(q2.device).cuda_stream)
+             float(scale), _stream(q2))
     _cuda.check(err, "temporal_attention")
     temporal_attention.launches += 1
     return out
 
 
+def temporal_attention_bwd(q2, k2, v2, do2, scale: float, heads: int):
+    """K8: (dq, dk, dv) of the packed temporal attention."""
+    n, f, d = _check_shapes("temporal_attention_bwd", q2, (k2, v2, do2), heads)
+    if q2.device.type == "cpu":
+        return temporal_attention_bwd_plain(q2, k2, v2, do2, scale, heads)
+    _check_cuda("temporal_attention_bwd", (q2, k2, v2, do2), q2.dtype)
+    name = "synfmc_temporal_bwd_bf16" if q2.dtype == torch.bfloat16 else "synfmc_temporal_bwd_f32"
+    P, I, F32 = _cuda.P, _cuda.I, _cuda.F32
+    fn = _cuda.entry("temporal_bwd", name, [P] * 7 + [I, I, I, I, F32, P])
+    dq, dk, dv = torch.empty_like(q2), torch.empty_like(k2), torch.empty_like(v2)
+    err = fn(q2.data_ptr(), k2.data_ptr(), v2.data_ptr(), do2.data_ptr(), dq.data_ptr(),
+             dk.data_ptr(), dv.data_ptr(), n, f, heads, d, float(scale), _stream(q2))
+    _cuda.check(err, "temporal_attention_bwd")
+    temporal_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+class _TemporalAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q2, k2, v2, scale, heads):
+        ctx.save_for_backward(q2, k2, v2)
+        ctx.scale, ctx.heads = scale, heads
+        return temporal_attention_fwd(q2, k2, v2, scale, heads)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q2, k2, v2 = ctx.saved_tensors
+        dq, dk, dv = temporal_attention_bwd(q2, k2, v2, dout.contiguous().to(q2.dtype),
+                                            ctx.scale, ctx.heads)
+        return dq, dk, dv, None, None
+
+
+def temporal_attention(q2, k2, v2, scale: float, heads: int) -> torch.Tensor:
+    """Self-attention over F positions of each of N rows, (N, F, H*D),
+    differentiable when an operand requires grad."""
+    if torch.is_grad_enabled() and (q2.requires_grad or k2.requires_grad or v2.requires_grad):
+        return _TemporalAttention.apply(q2, k2, v2, scale, heads)
+    return temporal_attention_fwd(q2, k2, v2, scale, heads)
+
+
 temporal_attention.launches = 0
+temporal_attention_bwd.launches = 0

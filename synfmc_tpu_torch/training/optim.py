@@ -1,0 +1,86 @@
+"""Optimizer: global-norm clip, then AdamW with a constant, linear or cosine
+learning-rate schedule after an optional linear warmup.
+
+The update of synfmc_tpu/training/optim.py's
+``optax.chain(clip_by_global_norm, adamw(schedule))``: betas (0.9, 0.999),
+eps 1e-8, decoupled weight decay 1e-2 on every tensor, the schedule read at
+the update count (0 for the first update), and the clip scaling only when
+the global norm reaches the limit.  The AdamW update itself is
+``torch.optim.AdamW`` on fp32 tensors.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from typing import Callable, Iterable, Sequence
+
+import torch
+
+
+def make_lr_schedule(learning_rate: float, scheduler: str = "constant", warmup_steps: int = 0,
+                     total_steps: int = 0) -> Callable[[int], float]:
+    """optax's schedules as a function of the update count."""
+    if scheduler not in ("constant", "linear", "cosine"):
+        raise ValueError(f"unknown lr scheduler {scheduler!r}")
+    span = max(total_steps - warmup_steps, 1)
+
+    def base(count: int) -> float:
+        frac = min(count, span) / span
+        if scheduler == "linear":
+            return learning_rate * (1.0 - frac)
+        if scheduler == "cosine":
+            return learning_rate * 0.5 * (1.0 + math.cos(math.pi * frac))
+        return learning_rate
+
+    def schedule(count: int) -> float:
+        if warmup_steps <= 0:
+            return base(count)
+        if count < warmup_steps:
+            return learning_rate * count / warmup_steps
+        return base(count - warmup_steps)
+
+    return schedule
+
+
+class ClipAdamW:
+    """Global-norm clip then AdamW on a list of fp32 tensors."""
+
+    def __init__(self, params: Iterable[torch.Tensor], schedule: Callable[[int], float],
+                 betas=(0.9, 0.999), eps: float = 1e-8, weight_decay: float = 1e-2,
+                 max_grad_norm: float = 1.0):
+        self.params = list(params)
+        if any(p.dtype != torch.float32 for p in self.params):
+            raise TypeError("ClipAdamW updates fp32 tensors (the masters of bf16 weights)")
+        self.schedule, self.max_grad_norm = schedule, max_grad_norm
+        self.adamw = torch.optim.AdamW(self.params, lr=schedule(0), betas=betas, eps=eps,
+                                       weight_decay=weight_decay)
+        self.count = 0
+
+    @torch.no_grad()
+    def step(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
+        """One update from ``grads`` (fp32, one per tensor), which leaves each
+        tensor's ``grad`` at its clipped gradient; returns the global norm
+        before the clip."""
+        norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+        clip = torch.where(norm < self.max_grad_norm, torch.ones_like(norm),
+                           self.max_grad_norm / norm)
+        for p, g in zip(self.params, grads):
+            p.grad = g * clip
+        for group in self.adamw.param_groups:
+            group["lr"] = self.schedule(self.count)
+        self.adamw.step()
+        self.count += 1
+        return norm
+
+
+def make_optimizer(learning_rate: float, adam_beta1: float = 0.9, adam_beta2: float = 0.999,
+                   adam_weight_decay: float = 1e-2, adam_epsilon: float = 1e-8,
+                   max_grad_norm: float = 1.0, lr_scheduler: str = "constant",
+                   lr_warmup_steps: int = 0,
+                   max_train_steps: int = 0) -> Callable[[Iterable[torch.Tensor]], ClipAdamW]:
+    """A factory that builds the optimizer over a list of fp32 tensors."""
+    schedule = make_lr_schedule(learning_rate, lr_scheduler, lr_warmup_steps, max_train_steps)
+    return functools.partial(ClipAdamW, schedule=schedule, betas=(adam_beta1, adam_beta2),
+                             eps=adam_epsilon, weight_decay=adam_weight_decay,
+                             max_grad_norm=max_grad_norm)

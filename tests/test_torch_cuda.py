@@ -82,14 +82,97 @@ def test_group_norm_kernel(gen, dtype, n, s, c, groups, act):
     assert_close(got, want, dtype)
 
 
-@pytest.mark.parametrize("kernel", ["group_norm", "flash_fwd", "temporal_fwd"])
+def assert_grads_close(got, want, dtype):
+    """Gradient by gradient: chip_smoke.py's backward check in bf16, < 1e-4
+    of the largest magnitude in fp32."""
+    from chip_smoke import bwd_ok
+
+    for g, w in zip(got, want):
+        err, rel = kernel_error(g, w)
+        assert (rel < F32_TOL) if dtype == torch.float32 else bwd_ok(err, rel), (err, rel)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,s,h,d", [(2, 300, 8, 40), (1, 77, 2, 80), (1, 130, 1, 256),
+                                     (3, 5, 4, 8), (1, 384, 8, 80)])
+def test_flash_bwd_kernel(gen, dtype, b, s, h, d):
+    from synfmc_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_bwd_plain,
+        flash_attention_fwd,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, do = (_rand(gen, b, s, h * d, dtype=dtype) for _ in range(4))
+    o, lse = flash_attention_fwd(q, k, v, d ** -0.5, h, with_lse=True)
+    assert lse.shape == (b, h, s) and lse.dtype == torch.float32
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, o, lse, do, d ** -0.5, h)
+    assert flash_attention_bwd.launches == before + 1
+    want = flash_attention_bwd_plain(q.float(), k.float(), v.float(), do.float(), d ** -0.5, h)
+    assert_grads_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,f,h,d", [(16, 16, 8, 40), (8, 24, 8, 160), (8, 64, 2, 32), (24, 3, 1, 8)])
+def test_temporal_bwd_kernel(gen, dtype, n, f, h, d):
+    from synfmc_tpu_torch.ops.temporal_attention import (
+        temporal_attention_bwd,
+        temporal_attention_bwd_plain,
+    )
+
+    q, k, v, do = (_rand(gen, n, f, h * d, dtype=dtype) for _ in range(4))
+    before = temporal_attention_bwd.launches
+    got = temporal_attention_bwd(q, k, v, do, d ** -0.5, h)
+    assert temporal_attention_bwd.launches == before + 1
+    want = temporal_attention_bwd_plain(q.float(), k.float(), v.float(), do.float(), d ** -0.5, h)
+    assert_grads_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("kind", ["flash", "temporal", "group_norm"])
+def test_gradient_through_wrapper_matches_plain(gen, kind):
+    """On the card each wrapper's output carries a grad_fn, and autograd
+    through it (kernel forward, kernel or PyTorch-ops backward) gives the
+    gradients of autograd through the plain forward (fp32, TF32 off)."""
+    from synfmc_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+    from synfmc_tpu_torch.ops.fused_groupnorm import fused_group_norm, group_norm_plain
+    from synfmc_tpu_torch.ops.temporal_attention import (
+        temporal_attention,
+        temporal_attention_plain,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if kind == "group_norm":
+        inputs = (_rand(gen, 2, 96, 64, dtype=torch.float32),
+                  1 + 0.1 * _rand(gen, 64, dtype=torch.float32),
+                  0.1 * _rand(gen, 64, dtype=torch.float32))
+        fn, plain, args = fused_group_norm, group_norm_plain, (32, 1e-6, "silu")
+    else:
+        shape = (2, 300, 64) if kind == "flash" else (16, 16, 64)
+        inputs = tuple(_rand(gen, *shape, dtype=torch.float32) for _ in range(3))
+        fn, plain = ((flash_attention, flash_attention_plain) if kind == "flash"
+                     else (temporal_attention, temporal_attention_plain))
+        args = (0.25, 4)
+    leaves = [x.clone().requires_grad_() for x in inputs]
+    out = fn(*leaves, *args)
+    assert out.grad_fn is not None
+    cot = torch.randn(out.shape, generator=gen, device="cuda")
+    got = torch.autograd.grad(out, leaves, cot)
+    ref = [x.clone().requires_grad_() for x in inputs]
+    want = torch.autograd.grad(plain(*ref, *args), ref, cot)
+    for g, w in zip(got, want):
+        assert kernel_error(g, w)[1] < F32_TOL
+
+
+@pytest.mark.parametrize("kernel", ["group_norm", "flash_fwd", "temporal_fwd", "flash_bwd",
+                                    "temporal_bwd"])
 def test_unloadable_kernel_raises(gen, monkeypatch, kernel):
-    """A CUDA tensor never drops to the plain version: a library that cannot
-    be loaded raises out of the wrapper."""
+    """A CUDA tensor never drops to the plain version, forward or backward: a
+    library that cannot be loaded raises out of the wrapper."""
     from synfmc_tpu_torch.ops import _cuda
-    from synfmc_tpu_torch.ops.flash_attention import flash_attention
+    from synfmc_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
     from synfmc_tpu_torch.ops.fused_groupnorm import fused_group_norm
-    from synfmc_tpu_torch.ops.temporal_attention import temporal_attention
+    from synfmc_tpu_torch.ops.temporal_attention import temporal_attention, temporal_attention_bwd
 
     def no_lib(name):
         raise RuntimeError(f"no {name} library")
@@ -98,8 +181,11 @@ def test_unloadable_kernel_raises(gen, monkeypatch, kernel):
     monkeypatch.setattr(_cuda, "_entries", {})
     x = _rand(gen, 8, 16, 32, dtype=torch.bfloat16)
     w = torch.ones(32, device="cuda", dtype=torch.bfloat16)
+    lse = torch.zeros(8, 4, 16, device="cuda")
     fn, args = {"group_norm": (fused_group_norm, (x, w, w, 4)),
                 "flash_fwd": (flash_attention, (x, x, x, 0.5, 4)),
-                "temporal_fwd": (temporal_attention, (x, x, x, 0.5, 4))}[kernel]
+                "temporal_fwd": (temporal_attention, (x, x, x, 0.5, 4)),
+                "flash_bwd": (flash_attention_bwd, (x, x, x, x, lse, x, 0.5, 4)),
+                "temporal_bwd": (temporal_attention_bwd, (x, x, x, x, 0.5, 4))}[kernel]
     with pytest.raises(RuntimeError, match=f"no {kernel} library"):
         fn(*args)

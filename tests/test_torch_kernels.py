@@ -19,9 +19,17 @@ from synfmc_tpu.ops.pallas_groupnorm import fused_group_norm as jax_fused_gn
 from synfmc_tpu.ops.temporal_attention import _fwd_call as jax_temporal_fwd
 from synfmc_tpu_torch.ops import _cuda
 from synfmc_tpu_torch.ops.attention import dot_product_attention, route
-from synfmc_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+from synfmc_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_plain,
+)
 from synfmc_tpu_torch.ops.fused_groupnorm import fused_group_norm, group_norm_plain
-from synfmc_tpu_torch.ops.temporal_attention import temporal_attention, temporal_attention_plain
+from synfmc_tpu_torch.ops.temporal_attention import (
+    temporal_attention,
+    temporal_attention_bwd,
+    temporal_attention_plain,
+)
 
 ATOL = 2e-5
 
@@ -186,11 +194,12 @@ class _ReportsCuda(torch.Tensor):
         return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("kernel", ["group_norm", "flash_fwd", "temporal_fwd"])
+@pytest.mark.parametrize("kernel", ["group_norm", "flash_fwd", "temporal_fwd", "flash_bwd",
+                                    "temporal_bwd"])
 def test_cuda_tensor_never_falls_back(monkeypatch, kernel):
-    """On a CUDA tensor the wrapper asks for its kernel, and a library that
-    cannot be loaded raises out of the wrapper instead of running the plain
-    version."""
+    """On a CUDA tensor a wrapper, forward or backward, asks for its kernel,
+    and a library that cannot be loaded raises out of the wrapper instead of
+    running the plain version."""
     asked = []
 
     def no_lib(name):
@@ -203,7 +212,9 @@ def test_cuda_tensor_never_falls_back(monkeypatch, kernel):
     assert x.device.type == "cuda"
     fn, args = {"group_norm": (fused_group_norm, (x, torch.ones(32), torch.zeros(32), 4)),
                 "flash_fwd": (flash_attention, (x, x, x, 0.5, 4)),
-                "temporal_fwd": (temporal_attention, (x, x, x, 0.5, 4))}[kernel]
+                "temporal_fwd": (temporal_attention, (x, x, x, 0.5, 4)),
+                "flash_bwd": (flash_attention_bwd, (x, x, x, x, torch.zeros(8, 4, 16), x, 0.5, 4)),
+                "temporal_bwd": (temporal_attention_bwd, (x, x, x, x, 0.5, 4))}[kernel]
     before = fn.launches
     with pytest.raises(RuntimeError, match=f"no {kernel} library"):
         fn(*args)

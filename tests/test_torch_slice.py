@@ -51,9 +51,9 @@ def tiny_config():
     return cfg
 
 
-def jax_models(cfg):
+def jax_models(cfg, block_out_channels=TINY["block_out_channels"]):
     """The same modules built the JAX package's way (trainers.build_models)."""
-    chs = tuple(TINY["block_out_channels"])
+    chs = tuple(block_out_channels)
     unet = JUNet(block_out_channels=chs, attn_heads=4, cross_attention_dim=64,
                  **jax_unet_cfg(cfg["unet_additional_kwargs"], lora_rank=cfg["lora_rank"],
                                 lora_scale=cfg["lora_scale"], camera_cond=True))
