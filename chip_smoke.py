@@ -81,6 +81,10 @@ RATES = {
     "NVL": dict(bf16=835e12, f32=60e12, bytes=3.9e12),
 }
 
+# torch.cuda._sleep spins for a count of SM cycles; at or above the H100's
+# top clock (1.98 GHz) the sleep lasts at least the time asked for.
+SLEEP_CYCLES_PER_S = 2.0e9
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 CAM_YAML = os.path.join(REPO, "configs", "cam.yaml")  # the flagship cam stage
 # The tiny width of tests/test_torch_slice.py.
@@ -121,10 +125,18 @@ def rates_for(name: str) -> tuple[str, dict]:
 
 
 def time_ms(fn, arg_sets, reps: int = 10, warmup: int = 3) -> float:
-    """Median CUDA-event time of one call, rotating over fresh input sets."""
+    """Median CUDA-event time of one call, rotating over fresh input sets.
+    The timed calls queue behind a device-side sleep that outlasts the host's
+    time to issue them, so each event pair brackets the call's device work
+    and not the host's launch cost, which is the larger at small shapes."""
     for i in range(warmup):
         fn(*arg_sets[i % len(arg_sets)])
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(*arg_sets[0])
+    torch.cuda.synchronize()
+    issue_s = time.perf_counter() - t0  # host and device: bounds the host's issue time
+    torch.cuda._sleep(int(SLEEP_CYCLES_PER_S * (2 * reps * issue_s + 1e-3)))
     events = []
     for i in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)

@@ -1,6 +1,6 @@
-// Warp-level tensor-core helpers shared by the flash attention kernels:
-// ldmatrix, mma.sync m16n8k16 (bf16 in, fp32 accumulate), cp.async, and the
-// padded shared-memory tile layout both directions use.
+// Warp-level tensor-core helpers shared by the attention kernels: ldmatrix,
+// mma.sync m16n8k16 and m16n8k8 (bf16 in, fp32 accumulate), cp.async, and
+// the padded shared-memory tile layout both flash directions use.
 #pragma once
 
 #include "common.cuh"
@@ -26,6 +26,21 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
                : "r"(smem_u32(p)));
 }
 
+// Two 8x8 b16 matrices: lanes 0-15 supply the row addresses (matrix l / 8),
+// lane l receives row l / 4, columns 2*(l % 4) and +1 of each.
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
+}
+
+// The same, transposed.
+__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
+}
+
 // c (16x8 fp32) += a (16x16 bf16, row) * b (16x8 bf16, col).  Fragment
 // layout (PTX ISA, mma.m16n8k16): with g = lane / 4, t = lane % 4, a holds
 // rows g / g+8 x columns 2t, 2t+1 (+8); b holds rows 2t, 2t+1 (+8) x column g;
@@ -37,6 +52,16 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       "{%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The k = 8 shape, m16n8k8: a holds rows g (a0) and g+8 (a1) x columns 2t,
+// 2t+1; b holds rows 2t, 2t+1 x column g; c as above.
+__device__ __forceinline__ void mma_bf16_k8(float (&c)[4], const uint32_t (&a)[2], uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5}, {%6}, "
+      "{%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b));
 }
 
 // 16-byte asynchronous copy; zero-fills the destination when !valid.

@@ -7,35 +7,304 @@
 // applied to the fp32 logits, P normalised before PV and rounded to the
 // operand type, PV accumulated in fp32.
 //
-// Bound: bytes.  At F = 16 a (row, head) pair does 4*F*F*D = 41 KFLOP on
-// 4*F*D*2 = 5 KB, 8 FLOP/byte, far below the ~295 FLOP/byte where the H100's
-// tensor cores would become the limit.  So the design spends nothing on
-// tensor cores and everything on moving each byte once:
-//   - a block owns `ipb` (row, head) items; their Q/K/V head slices are read
-//     once from device memory with 16-byte vector loads into shared memory;
-//   - one thread per (item, query position) keeps its F logits in registers
-//     (F <= 64, templated on a power-of-two bound), so the softmax needs no
-//     cross-thread reduction;
-//   - K and V rows are broadcast reads; Q rows use an odd 32-bit word stride
-//     so the per-thread rows fall on distinct banks;
-//   - the output overwrites the thread's own Q row in shared memory and
-//     leaves with 16-byte vector stores.
-#include "common.cuh"
+// Bound: bytes.  A call reads q, k, v and writes o once: 4*N*F*C*2 bytes
+// against 4*N*H*F*F*D operations (chip_smoke.py's bound, the larger of
+// bytes / 3.35 TB/s and operations / 989 TFLOP/s on the H100 SXM).  At F = 16
+// that is F/2 = 8 FLOP/byte, far below the ~295 FLOP/byte where the tensor
+// cores would become the limit.  So the tensor cores only take the
+// arithmetic off the critical path, and the design spends its effort on
+// moving each byte once with the copies in flight:
+//   - a work unit is one row n and a group of HG consecutive heads.  Its Q,
+//     K and V are three F x (HG*D) slabs, each row a contiguous segment of
+//     the packed row, copied with 16-byte cp.async into shared rows;
+//   - blocks are persistent (grid = SMs x resident blocks) and walk the
+//     units with a two-stage ring: unit i+1's copies are in flight while
+//     unit i computes and stores;
+//   - HG is the largest divisor of H whose stage fits 48 KB and that still
+//     leaves two units per SM, so that small calls (the mid block's 32 rows
+//     of 24 tokens at D = 160) spread over the card;
+//   - one warp per (head, 16-query tile) runs mma.sync: S = Q K^T in k-steps
+//     of 16 over D, held as 2*KT n-tiles of fp32 in registers (KT = F / 16
+//     rounded up; 32 floats a thread at F = 64); keys >= F are masked to
+//     -inf, query rows >= F are never stored, and ldmatrix rows past F read
+//     row F - 1 instead (a masked key's P is 0), so shared memory holds only
+//     the F real rows and F = 24 or 3 needs no zero rows;
+//   - row max and sum take two quad shuffles; P is normalised, rounded to
+//     bf16 and packed straight into the A fragments of O = P V, with V
+//     through ldmatrix.trans, 16 output columns at a time, so the
+//     accumulators stay at 8 floats whatever D is;
+//   - a head dim with D % 16 == 8 (40 on level 0) ends with one m16n8k8
+//     step instead of padding D with zeros to 48: the slab is the packed
+//     row as it is, with no zero columns to write or keep, and 17 % fewer
+//     bytes of shared memory at D = 40;
+//   - a shared row is padded to an odd multiple of 16 bytes, so the 8 rows
+//     an ldmatrix reads fall on distinct banks;
+//   - each warp writes its output over its own Q rows, and the block stores
+//     the unit's output slab with 16-byte coalesced stores.
+// wgmma is not used: its 64-row tile does not fit F = 16, and the products
+// are not the bound.
+//
+// fp32: the CUDA-core kernel one thread per (row, head, query), used by the
+// float32 checks.  TF32 tensor cores would miss their 1e-4 limit.
+#include <algorithm>
+
+#include "mma.cuh"
 
 namespace {
 
-template <typename T, int MAXF>
-__global__ void temporal_fwd(const T* __restrict__ q, const T* __restrict__ k,
-                             const T* __restrict__ v, T* __restrict__ o, int items, int F,
-                             int H, int D, int ipb, float scale) {
+using namespace synfmc;
+using bf16 = __nv_bfloat16;
+
+constexpr int kMaxWarps = 16;
+constexpr int kStageBytes = 48 * 1024;  // target for one stage of the ring
+
+// Shared row stride (elements) of a segment of `seg` columns: an odd number
+// of 16-byte chunks.
+__host__ __device__ inline int seg_stride(int seg) { return seg + ((seg / 8) % 2 ? 0 : 8); }
+
+// KT key tiles of 16: F <= 16 * KT.  One stage of shared memory is
+// [3][F][LDS] (q, k, v; the output overwrites q).
+template <int KT>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+    temporal_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, bf16* __restrict__ o, int F, int H, int D,
+                      int HG, int units, int stages, float scale) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* const sm = reinterpret_cast<bf16*>(smem_raw);
+  const int C = H * D, groups = H / HG, seg = HG * D;
+  const int LDS = seg_stride(seg), mat = F * LDS;
+  const int vpr = seg / 8;  // 16-byte vectors per row segment
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, nwarps = blockDim.x / 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int items = HG * cdiv(F, 16);  // (head, query tile) pairs of a unit
+
+  // global offset of unit u's first element
+  auto unit_base = [&](int u) { return (size_t)(u / groups) * F * C + (size_t)(u % groups) * seg; };
+  auto load = [&](int u, bf16* st) {
+    const size_t base = unit_base(u);
+    for (int e = threadIdx.x; e < F * vpr; e += blockDim.x) {
+      const int f = e / vpr, j = e - f * vpr;
+      const size_t src = base + (size_t)f * C + j * 8;
+      bf16* dst = st + f * LDS + j * 8;
+      cp_async16(dst, q + src, true);
+      cp_async16(dst + mat, k + src, true);
+      cp_async16(dst + 2 * mat, v + src, true);
+    }
+    cp_commit();
+  };
+
+  int unit = blockIdx.x;
+  if (unit < units) load(unit, sm);
+  for (int i = 0; unit < units; ++i, unit += gridDim.x) {
+    bf16* const st = sm + (stages == 2 ? i & 1 : 0) * 3 * mat;
+    const int next = unit + gridDim.x;
+    if (stages == 2 && next < units) {
+      load(next, sm + ((i + 1) & 1) * 3 * mat);
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+
+    bf16* const Qs = st;
+    const bf16* const Ks = st + mat;
+    const bf16* const Vs = st + 2 * mat;
+    for (int it = warp; it < items; it += nwarps) {
+      const int hoff = (it % HG) * D, q0 = (it / HG) * 16;
+      const int rowA = min(q0 + (lane & 15), F - 1);
+
+      // S = Q K^T for 16 queries x 16*KT keys, fp32 in registers
+      float s[2 * KT][4];
+#pragma unroll
+      for (int j = 0; j < 2 * KT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      int rowB[KT];
+#pragma unroll
+      for (int jp = 0; jp < KT; ++jp)
+        rowB[jp] = min(jp * 16 + (lane & 7) + ((lane >> 4) << 3), F - 1);
+#pragma unroll 2
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t a[4];
+        ldsm_x4(a, Qs + rowA * LDS + hoff + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int jp = 0; jp < KT; ++jp) {
+          uint32_t b[4];
+          ldsm_x4(b, Ks + rowB[jp] * LDS + hoff + kk * 16 + ((lane >> 3) & 1) * 8);
+          mma_bf16(s[2 * jp], a, b[0], b[1]);
+          mma_bf16(s[2 * jp + 1], a, b[2], b[3]);
+        }
+      }
+      if (D & 8) {  // the last 8 columns of the head: one k = 8 step
+        const int c = hoff + D - 8;
+        uint32_t a[2];
+        ldsm_x2(a, Qs + rowA * LDS + c);
+#pragma unroll
+        for (int jp = 0; jp < KT; ++jp) {
+          uint32_t b[2];
+          ldsm_x2(b, Ks + min(jp * 16 + (lane & 15), F - 1) * LDS + c);
+          mma_bf16_k8(s[2 * jp], a, b[0]);
+          mma_bf16_k8(s[2 * jp + 1], a, b[1]);
+        }
+      }
+
+      // softmax over the keys; a row's keys live in the 4 lanes of a quad
+      float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < 2 * KT; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          s[j][c] = 8 * j + 2 * t + (c & 1) < F ? s[j][c] * scale : -INFINITY;
+          mx[c >> 1] = fmaxf(mx[c >> 1], s[j][c]);
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      }
+#pragma unroll
+      for (int j = 0; j < 2 * KT; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          s[j][c] = __expf(s[j][c] - mx[c >> 1]);
+          sum[c >> 1] += s[j][c];
+        }
+      float inv[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+        inv[r] = 1.f / sum[r];
+      }
+      // normalised P, rounded to bf16, as the A fragments of P V
+      uint32_t p[KT][4];
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk) {
+        p[kk][0] = pack_bf16(s[2 * kk][0] * inv[0], s[2 * kk][1] * inv[0]);
+        p[kk][1] = pack_bf16(s[2 * kk][2] * inv[1], s[2 * kk][3] * inv[1]);
+        p[kk][2] = pack_bf16(s[2 * kk + 1][0] * inv[0], s[2 * kk + 1][1] * inv[0]);
+        p[kk][3] = pack_bf16(s[2 * kk + 1][2] * inv[1], s[2 * kk + 1][3] * inv[1]);
+      }
+
+      // O = P V, 16 (then 8) columns at a time, written over the warp's Q rows
+      __syncwarp();
+      int rowV[KT];
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk) rowV[kk] = min(kk * 16 + (lane & 15), F - 1);
+      const bool lo = q0 + g < F, hi = q0 + g + 8 < F;
+      bf16* const o_lo = Qs + (q0 + g) * LDS + hoff + 2 * t;
+      bf16* const o_hi = o_lo + 8 * LDS;
+      auto put = [&](const float (&acc)[4], int col) {
+        if (lo) *reinterpret_cast<__nv_bfloat162*>(o_lo + col) = __floats2bfloat162_rn(acc[0], acc[1]);
+        if (hi) *reinterpret_cast<__nv_bfloat162*>(o_hi + col) = __floats2bfloat162_rn(acc[2], acc[3]);
+      };
+#pragma unroll 2
+      for (int dp = 0; dp < D / 16; ++dp) {
+        float acc[2][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < KT; ++kk) {
+          uint32_t b[4];
+          ldsm_x4_t(b, Vs + rowV[kk] * LDS + hoff + dp * 16 + (lane >> 4) * 8);
+          mma_bf16(acc[0], p[kk], b[0], b[1]);
+          mma_bf16(acc[1], p[kk], b[2], b[3]);
+        }
+        put(acc[0], dp * 16);
+        put(acc[1], dp * 16 + 8);
+      }
+      if (D & 8) {
+        float acc[4] = {};
+#pragma unroll
+        for (int kk = 0; kk < KT; ++kk) {
+          uint32_t b[2];
+          ldsm_x2_t(b, Vs + rowV[kk] * LDS + hoff + D - 8);
+          mma_bf16(acc, p[kk], b[0], b[1]);
+        }
+        put(acc, D - 8);
+      }
+    }
+    __syncthreads();
+
+    // the unit's output slab, 16 bytes a thread
+    const size_t base = unit_base(unit);
+    for (int e = threadIdx.x; e < F * vpr; e += blockDim.x) {
+      const int f = e / vpr, j = e - f * vpr;
+      *reinterpret_cast<uint4*>(o + base + (size_t)f * C + j * 8) =
+          *reinterpret_cast<const uint4*>(Qs + f * LDS + j * 8);
+    }
+    __syncthreads();  // the next copy into this stage waits for the stores' reads
+    if (stages == 1 && next < units) load(next, sm);
+  }
+}
+
+// The device's SM count and opt-in shared memory per block, read once per
+// process and device.
+struct DeviceInfo {
+  int dev, sms, optin;
+};
+DeviceInfo device_info() {
+  static int sms[16] = {}, optin[16] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  dev = std::min(dev, 15);
+  if (sms[dev] == 0) {
+    cudaDeviceGetAttribute(&optin[dev], cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+  }
+  return {dev, sms[dev], optin[dev]};
+}
+
+template <int KT>
+int launch_bf16(const void* q, const void* k, const void* v, void* o, int N, int F, int H, int D,
+                float scale, cudaStream_t stream) {
+  auto kern = temporal_fwd_bf16<KT>;
+  const DeviceInfo info = device_info();
+  const int sms = info.sms, optin = info.optin;
+  static bool attributes_set[16] = {};  // per instance and device, before its first launch
+  if (!attributes_set[info.dev]) {
+    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return (int)e;
+    attributes_set[info.dev] = true;
+  }
+  auto stage_bytes = [&](int hg) { return 3 * F * seg_stride(hg * D) * (int)sizeof(bf16); };
+  // the largest head group that fits a stage and leaves two units per SM
+  int hg = H;
+  for (; hg > 1; --hg)
+    if (H % hg == 0 && stage_bytes(hg) <= kStageBytes && (long)N * (H / hg) >= 2L * sms) break;
+  const int stages = 2 * stage_bytes(hg) <= optin ? 2 : 1;
+  const int smem = stages * stage_bytes(hg);
+  if (smem > optin) return (int)cudaErrorInvalidValue;
+  const int threads = std::min(hg * cdiv(F, 16), kMaxWarps) * 32;
+  int per_sm = 0;
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int units = N * (H / hg);
+  const int grid = std::min(units, sms * std::max(per_sm, 1));
+  kern<<<grid, threads, smem, stream>>>((const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o,
+                                        F, H, D, hg, units, stages, scale);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// fp32: one thread per (row, head, query) on the CUDA cores.
+// ---------------------------------------------------------------------------
+
+// A block owns `ipb` (row, head) items, loads their head slices once into
+// shared memory (rows at an odd 32-bit word stride), and each thread keeps
+// its query's F logits in registers; the output overwrites the thread's own
+// Q row and leaves with 16-byte stores.
+template <int MAXF>
+__global__ void temporal_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+                                 const float* __restrict__ v, float* __restrict__ o, int items,
+                                 int F, int H, int D, int ipb, float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sm = reinterpret_cast<T*>(smem_raw);
-  const int ld = row_stride<T>(D);
+  float* sm = reinterpret_cast<float*>(smem_raw);
+  const int ld = row_stride<float>(D);
   const int per = F * ld;  // one matrix of one item
   const int C = H * D;
   const int item0 = blockIdx.x * ipb;
   const int nitems = min(ipb, items - item0);
-  constexpr int VE = vec_elems<T>();
+  constexpr int VE = vec_elems<float>();
   const int dvec = D / VE;
 
   // cooperative load: item it, position f, vector dv of its head slice
@@ -50,10 +319,10 @@ __global__ void temporal_fwd(const T* __restrict__ q, const T* __restrict__ k,
     const uint4 vq = *reinterpret_cast<const uint4*>(q + g);
     const uint4 vk = *reinterpret_cast<const uint4*>(k + g);
     const uint4 vv = *reinterpret_cast<const uint4*>(v + g);
-    const T* eq = reinterpret_cast<const T*>(&vq);
-    const T* ek = reinterpret_cast<const T*>(&vk);
-    const T* ev = reinterpret_cast<const T*>(&vv);
-    T* base = sm + (size_t)it * 3 * per + f * ld + dv * VE;
+    const float* eq = reinterpret_cast<const float*>(&vq);
+    const float* ek = reinterpret_cast<const float*>(&vk);
+    const float* ev = reinterpret_cast<const float*>(&vv);
+    float* base = sm + (size_t)it * 3 * per + f * ld + dv * VE;
 #pragma unroll
     for (int j = 0; j < VE; ++j) {
       base[j] = eq[j];
@@ -66,17 +335,17 @@ __global__ void temporal_fwd(const T* __restrict__ q, const T* __restrict__ k,
   const int it = threadIdx.x / F;
   const int i = threadIdx.x % F;
   if (it < nitems) {
-    T* Q = sm + (size_t)it * 3 * per;
-    const T* K = Q + per;
-    const T* V = Q + 2 * per;
+    float* Q = sm + (size_t)it * 3 * per;
+    const float* K = Q + per;
+    const float* V = Q + 2 * per;
     float s[MAXF];
 #pragma unroll
     for (int j = 0; j < MAXF; ++j) s[j] = 0.f;
     for (int d = 0; d < D; ++d) {
-      const float qd = to_f(Q[i * ld + d]);
+      const float qd = Q[i * ld + d];
 #pragma unroll
       for (int j = 0; j < MAXF; ++j)
-        if (j < F) s[j] += qd * to_f(K[j * ld + d]);
+        if (j < F) s[j] += qd * K[j * ld + d];
     }
     float m = -3.0e38f;
 #pragma unroll
@@ -95,14 +364,14 @@ __global__ void temporal_fwd(const T* __restrict__ q, const T* __restrict__ k,
     const float inv = 1.f / sum;
 #pragma unroll
     for (int j = 0; j < MAXF; ++j)
-      if (j < F) s[j] = round_to<T>(s[j] * inv);
+      if (j < F) s[j] *= inv;
     // Q row i is read only by this thread: overwrite it with the output.
     for (int d = 0; d < D; ++d) {
       float acc = 0.f;
 #pragma unroll
       for (int j = 0; j < MAXF; ++j)
-        if (j < F) acc += s[j] * to_f(V[j * ld + d]);
-      Q[i * ld + d] = from_f<T>(acc);
+        if (j < F) acc += s[j] * V[j * ld + d];
+      Q[i * ld + d] = acc;
     }
   }
   __syncthreads();
@@ -114,39 +383,32 @@ __global__ void temporal_fwd(const T* __restrict__ q, const T* __restrict__ k,
     const int item = item0 + it2;
     const int n = item / H, h = item % H;
     uint4 pack;
-    T* ep = reinterpret_cast<T*>(&pack);
-    const T* src = sm + (size_t)it2 * 3 * per + f * ld + dv * VE;
+    float* ep = reinterpret_cast<float*>(&pack);
+    const float* src = sm + (size_t)it2 * 3 * per + f * ld + dv * VE;
 #pragma unroll
-    for (int j = 0; j < VE; ++j) ep[j] = src[j];
+    for (int j = 0; j < VE; ++j) ep[j] = src[j];  // shared rows are not 16-byte aligned
     *reinterpret_cast<uint4*>(o + ((size_t)n * F + f) * C + (size_t)h * D + dv * VE) = pack;
   }
 }
 
-template <typename T, int MAXF>
-int launch_f(const void* q, const void* k, const void* v, void* o, int N, int F, int H, int D,
-             float scale, cudaStream_t stream) {
-  const int per_item = 3 * F * row_stride<T>(D) * (int)sizeof(T);
+template <int MAXF>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int N, int F, int H, int D,
+               float scale, cudaStream_t stream) {
+  const int per_item = 3 * F * row_stride<float>(D) * (int)sizeof(float);
   int ipb = 256 / F;
   if (ipb * per_item > 64 * 1024) ipb = (64 * 1024) / per_item;
   if (ipb < 1) ipb = 1;
   const int smem = ipb * per_item;
-  auto kern = temporal_fwd<T, MAXF>;
+  auto kern = temporal_fwd_f32<MAXF>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
   const int items = N * H;
-  kern<<<cdiv(items, ipb), ipb * F, smem, stream>>>((const T*)q, (const T*)k, (const T*)v,
-                                                    (T*)o, items, F, H, D, ipb, scale);
+  kern<<<cdiv(items, ipb), ipb * F, smem, stream>>>((const float*)q, (const float*)k,
+                                                    (const float*)v, (float*)o, items, F, H, D,
+                                                    ipb, scale);
   return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int N, int F, int H, int D,
-           float scale, cudaStream_t stream) {
-  if (F <= 16) return launch_f<T, 16>(q, k, v, o, N, F, H, D, scale, stream);
-  if (F <= 32) return launch_f<T, 32>(q, k, v, o, N, F, H, D, scale, stream);
-  return launch_f<T, 64>(q, k, v, o, N, F, H, D, scale, stream);
 }
 
 }  // namespace
@@ -154,10 +416,20 @@ int launch(const void* q, const void* k, const void* v, void* o, int N, int F, i
 // q, k, v, o: (N, F, H*D) contiguous, 16-byte aligned; F <= 64, D % 8 == 0.
 SYNFMC_API int synfmc_temporal_fwd_bf16(const void* q, const void* k, const void* v, void* o,
                                         int N, int F, int H, int D, float scale, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, N, F, H, D, scale, (cudaStream_t)stream);
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (cdiv(F, 16)) {
+    case 1: return launch_bf16<1>(q, k, v, o, N, F, H, D, scale, st);
+    case 2: return launch_bf16<2>(q, k, v, o, N, F, H, D, scale, st);
+    case 3: return launch_bf16<3>(q, k, v, o, N, F, H, D, scale, st);
+    case 4: return launch_bf16<4>(q, k, v, o, N, F, H, D, scale, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 SYNFMC_API int synfmc_temporal_fwd_f32(const void* q, const void* k, const void* v, void* o,
                                        int N, int F, int H, int D, float scale, void* stream) {
-  return launch<float>(q, k, v, o, N, F, H, D, scale, (cudaStream_t)stream);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (F <= 16) return launch_f32<16>(q, k, v, o, N, F, H, D, scale, st);
+  if (F <= 32) return launch_f32<32>(q, k, v, o, N, F, H, D, scale, st);
+  return launch_f32<64>(q, k, v, o, N, F, H, D, scale, st);
 }

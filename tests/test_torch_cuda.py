@@ -51,7 +51,13 @@ def test_flash_kernel(gen, dtype, b, s, h, d):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("n,f,h,d", [(16, 16, 8, 40), (8, 24, 8, 160), (8, 64, 2, 32), (24, 3, 1, 8)])
+@pytest.mark.parametrize("n,f,h,d", [
+    (16, 16, 8, 40), (16, 16, 8, 80), (16, 16, 8, 160),  # F = 16: k = 8 tail, 5 and 10 k-steps
+    (8, 24, 8, 160),  # key tiles padded to 32, the second query tile half empty
+    (8, 64, 2, 32), (24, 3, 1, 8),  # four query tiles; one tile of 3 and D < 16
+    (8, 16, 5, 40), (1000, 16, 5, 40),  # 5 heads; units left over after one persistent pass
+    (136, 48, 1, 400),  # a one-stage ring: two stages exceed shared memory
+])
 def test_temporal_kernel(gen, dtype, n, f, h, d):
     from synfmc_tpu_torch.ops.temporal_attention import (
         temporal_attention,

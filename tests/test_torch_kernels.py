@@ -49,7 +49,7 @@ def test_flash_plain_matches_pallas_interpret(rng, b, s, h, d):
     assert flash_attention.launches == before
 
 
-@pytest.mark.parametrize("n,f,h,d", [(8, 16, 2, 40), (16, 24, 4, 16), (8, 16, 1, 160)])
+@pytest.mark.parametrize("n,f,h,d", [(8, 16, 2, 40), (16, 24, 4, 16), (8, 16, 1, 160), (8, 3, 1, 8)])
 def test_temporal_plain_matches_pallas_interpret(rng, n, f, h, d):
     q, k, v = (rng.normal(size=(n, f, h * d)).astype(np.float32) for _ in range(3))
     scale = d ** -0.5
