@@ -12,7 +12,10 @@ Phases, each raising on failure (non-zero exit):
                 on the same bf16 inputs (max abs error < 0.05 and < 2**-6 of
                 the plain output's largest magnitude) plus one fp32 case each
                 (< 1e-4, TF32 off), with kernel, plain, library (one PyTorch
-                call) and bound times;
+                call) and bound times; kernel and library times are taken
+                with the device idle at each call (host launch cost
+                included) and again as device time only (`device_ms`,
+                `library_device_ms`);
   4. compose  - the tiny-width pipeline in fp32 on the GPU (kernels) and on
                 the CPU (plain versions) with the same weights: final
                 latents within 1e-3;
@@ -124,19 +127,22 @@ def rates_for(name: str) -> tuple[str, dict]:
     return "SXM", RATES["SXM"]
 
 
-def time_ms(fn, arg_sets, reps: int = 10, warmup: int = 3) -> float:
+def time_ms(fn, arg_sets, reps: int = 10, warmup: int = 3, queued: bool = False) -> float:
     """Median CUDA-event time of one call, rotating over fresh input sets.
-    The timed calls queue behind a device-side sleep that outlasts the host's
-    time to issue them, so each event pair brackets the call's device work
-    and not the host's launch cost, which is the larger at small shapes."""
+    By default the device is idle when each call starts, so the event pair
+    brackets the host's launch cost as well, which is the larger part at
+    small shapes.  With `queued` the timed calls wait behind a device-side
+    sleep that outlasts the host's time to issue them, so each pair brackets
+    the call's device work only."""
     for i in range(warmup):
         fn(*arg_sets[i % len(arg_sets)])
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn(*arg_sets[0])
-    torch.cuda.synchronize()
-    issue_s = time.perf_counter() - t0  # host and device: bounds the host's issue time
-    torch.cuda._sleep(int(SLEEP_CYCLES_PER_S * (2 * reps * issue_s + 1e-3)))
+    if queued:
+        t0 = time.perf_counter()
+        fn(*arg_sets[0])
+        torch.cuda.synchronize()
+        issue_s = time.perf_counter() - t0  # host and device: bounds the host's issue time
+        torch.cuda._sleep(int(SLEEP_CYCLES_PER_S * (2 * reps * issue_s + 1e-3)))
     events = []
     for i in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -331,11 +337,14 @@ def _row(kind, key, count, err, rel, kern, plain, lib, sets, flops, nbytes, rate
     row = dict(key=key, per_forward=count, err=err, rel=rel, ms=time_ms(kern, sets),
                plain_ms=time_ms(plain, sets, reps=5, warmup=1),
                library_ms=time_ms(lib, sets), bound_ms=max(t_ops, t_bytes),
-               bound_by="operations" if t_ops > t_bytes else "bytes")
+               bound_by="operations" if t_ops > t_bytes else "bytes",
+               device_ms=time_ms(kern, sets, queued=True),
+               library_device_ms=time_ms(lib, sets, queued=True))
     log(f"  {kind:12s} {str(key[:-2] if 'group_norm' not in kind else key):60s} "
         f"x{count:3d} err={err:.2e} rel={rel:.2e} ms={row['ms']:.4f} "
         f"plain={row['plain_ms']:.4f} lib={row['library_ms']:.4f} "
-        f"bound={row['bound_ms']:.4f} ({row['bound_by']})")
+        f"bound={row['bound_ms']:.4f} ({row['bound_by']}) "
+        f"device={row['device_ms']:.4f} lib_device={row['library_device_ms']:.4f}")
     return row
 
 
@@ -443,11 +452,14 @@ def check_bwd(seen, rates):
             row = dict(key=key, per_forward=count, err=err, rel=rel, ms=time_ms(kern, sets),
                        plain_ms=time_ms(plain, sets, reps=3, warmup=1),
                        library_ms=time_ms(lib, lib_sets), bound_ms=max(t_ops, t_bytes),
-                       bound_by="operations" if t_ops > t_bytes else "bytes")
+                       bound_by="operations" if t_ops > t_bytes else "bytes",
+                       device_ms=time_ms(kern, sets, queued=True),
+                       library_device_ms=time_ms(lib, lib_sets, queued=True))
             results[kind].append(row)
             log(f"  {kind:12s} {str(key[:-1]):44s} x{count:3d} err={err:.2e} rel={rel:.2e} "
                 f"ms={row['ms']:.4f} plain={row['plain_ms']:.4f} lib={row['library_ms']:.4f} "
-                f"bound={row['bound_ms']:.4f} ({row['bound_by']})")
+                f"bound={row['bound_ms']:.4f} ({row['bound_by']}) "
+                f"device={row['device_ms']:.4f} lib_device={row['library_device_ms']:.4f}")
             del sets, lib_sets
             torch.cuda.empty_cache()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -912,6 +924,7 @@ def summarise(results, launches):
             "max_abs_err": max(r["err"] for r in rows), "max_rel_err": max(r["rel"] for r in rows),
             "ms": hot["ms"], "plain_ms": hot["plain_ms"], "bound_ms": hot["bound_ms"],
             "bound_by": hot["bound_by"], "library_ms": hot["library_ms"],
+            "device_ms": hot["device_ms"], "library_device_ms": hot["library_device_ms"],
             "shape": list(hot["key"][1:]),
         })
     return summary

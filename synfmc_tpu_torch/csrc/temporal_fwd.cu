@@ -17,12 +17,16 @@
 //   - a work unit is one row n and a group of HG consecutive heads.  Its Q,
 //     K and V are three F x (HG*D) slabs, each row a contiguous segment of
 //     the packed row, copied with 16-byte cp.async into shared rows;
-//   - blocks are persistent (grid = SMs x resident blocks) and walk the
-//     units with a two-stage ring: unit i+1's copies are in flight while
-//     unit i computes and stores;
-//   - HG is the largest divisor of H whose stage fits 48 KB and that still
+//   - a block owns one unit: it loads, computes and stores once.  Copies
+//     overlap compute across the blocks resident on an SM, not within a
+//     block: a persistent variant that walked the units with a two-stage
+//     ring in each block measured equal or slower at every main-path shape
+//     (0.0528 against 0.0485 ms at 3072 x 16 x (8 x 40), chip_smoke.py's
+//     device time on an NVIDIA H100 80GB HBM3 at 700 W), so it was dropped;
+//   - HG is the largest divisor of H whose unit fits 48 KB and that still
 //     leaves two units per SM, so that small calls (the mid block's 32 rows
-//     of 24 tokens at D = 160) spread over the card;
+//     of 24 tokens at D = 160) spread over the card; a unit above 48 KB
+//     (one head of a large F x D) uses the opt-in shared memory;
 //   - one warp per (head, 16-query tile) runs mma.sync: S = Q K^T in k-steps
 //     of 16 over D, held as 2*KT n-tiles of fp32 in registers (KT = F / 16
 //     rounded up; 32 floats a thread at F = 64); keys >= F are masked to
@@ -56,19 +60,19 @@ using namespace synfmc;
 using bf16 = __nv_bfloat16;
 
 constexpr int kMaxWarps = 16;
-constexpr int kStageBytes = 48 * 1024;  // target for one stage of the ring
+constexpr int kUnitBytes = 48 * 1024;  // target for one unit's shared memory
 
 // Shared row stride (elements) of a segment of `seg` columns: an odd number
 // of 16-byte chunks.
 __host__ __device__ inline int seg_stride(int seg) { return seg + ((seg / 8) % 2 ? 0 : 8); }
 
-// KT key tiles of 16: F <= 16 * KT.  One stage of shared memory is
-// [3][F][LDS] (q, k, v; the output overwrites q).
+// KT key tiles of 16: F <= 16 * KT.  A block owns one unit; its shared
+// memory is [3][F][LDS] (q, k, v; the output overwrites q).
 template <int KT>
 __global__ void __launch_bounds__(kMaxWarps * 32)
     temporal_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, bf16* __restrict__ o, int F, int H, int D,
-                      int HG, int units, int stages, float scale) {
+                      int HG, float scale) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* const sm = reinterpret_cast<bf16*>(smem_raw);
   const int C = H * D, groups = H / HG, seg = HG * D;
@@ -78,210 +82,192 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   const int g = lane >> 2, t = lane & 3;
   const int items = HG * cdiv(F, 16);  // (head, query tile) pairs of a unit
 
-  // global offset of unit u's first element
-  auto unit_base = [&](int u) { return (size_t)(u / groups) * F * C + (size_t)(u % groups) * seg; };
-  auto load = [&](int u, bf16* st) {
-    const size_t base = unit_base(u);
-    for (int e = threadIdx.x; e < F * vpr; e += blockDim.x) {
-      const int f = e / vpr, j = e - f * vpr;
-      const size_t src = base + (size_t)f * C + j * 8;
-      bf16* dst = st + f * LDS + j * 8;
-      cp_async16(dst, q + src, true);
-      cp_async16(dst + mat, k + src, true);
-      cp_async16(dst + 2 * mat, v + src, true);
-    }
-    cp_commit();
-  };
+  // global offset of this block's unit: row blockIdx.x / groups, head group blockIdx.x % groups
+  const size_t base = (size_t)(blockIdx.x / groups) * F * C + (size_t)(blockIdx.x % groups) * seg;
+  for (int e = threadIdx.x; e < F * vpr; e += blockDim.x) {
+    const int f = e / vpr, j = e - f * vpr;
+    const size_t src = base + (size_t)f * C + j * 8;
+    bf16* dst = sm + f * LDS + j * 8;
+    cp_async16(dst, q + src, true);
+    cp_async16(dst + mat, k + src, true);
+    cp_async16(dst + 2 * mat, v + src, true);
+  }
+  cp_commit();
+  cp_wait<0>();
+  __syncthreads();
 
-  int unit = blockIdx.x;
-  if (unit < units) load(unit, sm);
-  for (int i = 0; unit < units; ++i, unit += gridDim.x) {
-    bf16* const st = sm + (stages == 2 ? i & 1 : 0) * 3 * mat;
-    const int next = unit + gridDim.x;
-    if (stages == 2 && next < units) {
-      load(next, sm + ((i + 1) & 1) * 3 * mat);
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
-    __syncthreads();
+  bf16* const Qs = sm;
+  const bf16* const Ks = sm + mat;
+  const bf16* const Vs = sm + 2 * mat;
+  for (int it = warp; it < items; it += nwarps) {
+    const int hoff = (it % HG) * D, q0 = (it / HG) * 16;
+    const int rowA = min(q0 + (lane & 15), F - 1);
 
-    bf16* const Qs = st;
-    const bf16* const Ks = st + mat;
-    const bf16* const Vs = st + 2 * mat;
-    for (int it = warp; it < items; it += nwarps) {
-      const int hoff = (it % HG) * D, q0 = (it / HG) * 16;
-      const int rowA = min(q0 + (lane & 15), F - 1);
-
-      // S = Q K^T for 16 queries x 16*KT keys, fp32 in registers
-      float s[2 * KT][4];
+    // S = Q K^T for 16 queries x 16*KT keys, fp32 in registers
+    float s[2 * KT][4];
 #pragma unroll
-      for (int j = 0; j < 2 * KT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      int rowB[KT];
+    for (int j = 0; j < 2 * KT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    int rowB[KT];
 #pragma unroll
-      for (int jp = 0; jp < KT; ++jp)
-        rowB[jp] = min(jp * 16 + (lane & 7) + ((lane >> 4) << 3), F - 1);
+    for (int jp = 0; jp < KT; ++jp)
+      rowB[jp] = min(jp * 16 + (lane & 7) + ((lane >> 4) << 3), F - 1);
 #pragma unroll 2
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t a[4];
-        ldsm_x4(a, Qs + rowA * LDS + hoff + kk * 16 + (lane >> 4) * 8);
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t a[4];
+      ldsm_x4(a, Qs + rowA * LDS + hoff + kk * 16 + (lane >> 4) * 8);
 #pragma unroll
-        for (int jp = 0; jp < KT; ++jp) {
-          uint32_t b[4];
-          ldsm_x4(b, Ks + rowB[jp] * LDS + hoff + kk * 16 + ((lane >> 3) & 1) * 8);
-          mma_bf16(s[2 * jp], a, b[0], b[1]);
-          mma_bf16(s[2 * jp + 1], a, b[2], b[3]);
-        }
+      for (int jp = 0; jp < KT; ++jp) {
+        uint32_t b[4];
+        ldsm_x4(b, Ks + rowB[jp] * LDS + hoff + kk * 16 + ((lane >> 3) & 1) * 8);
+        mma_bf16(s[2 * jp], a, b[0], b[1]);
+        mma_bf16(s[2 * jp + 1], a, b[2], b[3]);
       }
-      if (D & 8) {  // the last 8 columns of the head: one k = 8 step
-        const int c = hoff + D - 8;
-        uint32_t a[2];
-        ldsm_x2(a, Qs + rowA * LDS + c);
+    }
+    if (D & 8) {  // the last 8 columns of the head: one k = 8 step
+      const int c = hoff + D - 8;
+      uint32_t a[2];
+      ldsm_x2(a, Qs + rowA * LDS + c);
 #pragma unroll
-        for (int jp = 0; jp < KT; ++jp) {
-          uint32_t b[2];
-          ldsm_x2(b, Ks + min(jp * 16 + (lane & 15), F - 1) * LDS + c);
-          mma_bf16_k8(s[2 * jp], a, b[0]);
-          mma_bf16_k8(s[2 * jp + 1], a, b[1]);
-        }
+      for (int jp = 0; jp < KT; ++jp) {
+        uint32_t b[2];
+        ldsm_x2(b, Ks + min(jp * 16 + (lane & 15), F - 1) * LDS + c);
+        mma_bf16_k8(s[2 * jp], a, b[0]);
+        mma_bf16_k8(s[2 * jp + 1], a, b[1]);
       }
+    }
 
-      // softmax over the keys; a row's keys live in the 4 lanes of a quad
-      float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
+    // softmax over the keys; a row's keys live in the 4 lanes of a quad
+    float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
 #pragma unroll
-      for (int j = 0; j < 2 * KT; ++j)
+    for (int j = 0; j < 2 * KT; ++j)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          s[j][c] = 8 * j + 2 * t + (c & 1) < F ? s[j][c] * scale : -INFINITY;
-          mx[c >> 1] = fmaxf(mx[c >> 1], s[j][c]);
-        }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      for (int c = 0; c < 4; ++c) {
+        s[j][c] = 8 * j + 2 * t + (c & 1) < F ? s[j][c] * scale : -INFINITY;
+        mx[c >> 1] = fmaxf(mx[c >> 1], s[j][c]);
       }
 #pragma unroll
-      for (int j = 0; j < 2 * KT; ++j)
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    }
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          s[j][c] = __expf(s[j][c] - mx[c >> 1]);
-          sum[c >> 1] += s[j][c];
-        }
-      float inv[2];
+    for (int j = 0; j < 2 * KT; ++j)
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
-        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
-        inv[r] = 1.f / sum[r];
+      for (int c = 0; c < 4; ++c) {
+        s[j][c] = __expf(s[j][c] - mx[c >> 1]);
+        sum[c >> 1] += s[j][c];
       }
-      // normalised P, rounded to bf16, as the A fragments of P V
-      uint32_t p[KT][4];
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+      inv[r] = 1.f / sum[r];
+    }
+    // normalised P, rounded to bf16, as the A fragments of P V
+    uint32_t p[KT][4];
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) {
+      p[kk][0] = pack_bf16(s[2 * kk][0] * inv[0], s[2 * kk][1] * inv[0]);
+      p[kk][1] = pack_bf16(s[2 * kk][2] * inv[1], s[2 * kk][3] * inv[1]);
+      p[kk][2] = pack_bf16(s[2 * kk + 1][0] * inv[0], s[2 * kk + 1][1] * inv[0]);
+      p[kk][3] = pack_bf16(s[2 * kk + 1][2] * inv[1], s[2 * kk + 1][3] * inv[1]);
+    }
+
+    // O = P V, 16 (then 8) columns at a time, written over the warp's Q rows
+    __syncwarp();
+    int rowV[KT];
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) rowV[kk] = min(kk * 16 + (lane & 15), F - 1);
+    const bool lo = q0 + g < F, hi = q0 + g + 8 < F;
+    bf16* const o_lo = Qs + (q0 + g) * LDS + hoff + 2 * t;
+    bf16* const o_hi = o_lo + 8 * LDS;
+    auto put = [&](const float (&acc)[4], int col) {
+      if (lo) *reinterpret_cast<__nv_bfloat162*>(o_lo + col) = __floats2bfloat162_rn(acc[0], acc[1]);
+      if (hi) *reinterpret_cast<__nv_bfloat162*>(o_hi + col) = __floats2bfloat162_rn(acc[2], acc[3]);
+    };
+#pragma unroll 2
+    for (int dp = 0; dp < D / 16; ++dp) {
+      float acc[2][4] = {};
 #pragma unroll
       for (int kk = 0; kk < KT; ++kk) {
-        p[kk][0] = pack_bf16(s[2 * kk][0] * inv[0], s[2 * kk][1] * inv[0]);
-        p[kk][1] = pack_bf16(s[2 * kk][2] * inv[1], s[2 * kk][3] * inv[1]);
-        p[kk][2] = pack_bf16(s[2 * kk + 1][0] * inv[0], s[2 * kk + 1][1] * inv[0]);
-        p[kk][3] = pack_bf16(s[2 * kk + 1][2] * inv[1], s[2 * kk + 1][3] * inv[1]);
+        uint32_t b[4];
+        ldsm_x4_t(b, Vs + rowV[kk] * LDS + hoff + dp * 16 + (lane >> 4) * 8);
+        mma_bf16(acc[0], p[kk], b[0], b[1]);
+        mma_bf16(acc[1], p[kk], b[2], b[3]);
       }
-
-      // O = P V, 16 (then 8) columns at a time, written over the warp's Q rows
-      __syncwarp();
-      int rowV[KT];
-#pragma unroll
-      for (int kk = 0; kk < KT; ++kk) rowV[kk] = min(kk * 16 + (lane & 15), F - 1);
-      const bool lo = q0 + g < F, hi = q0 + g + 8 < F;
-      bf16* const o_lo = Qs + (q0 + g) * LDS + hoff + 2 * t;
-      bf16* const o_hi = o_lo + 8 * LDS;
-      auto put = [&](const float (&acc)[4], int col) {
-        if (lo) *reinterpret_cast<__nv_bfloat162*>(o_lo + col) = __floats2bfloat162_rn(acc[0], acc[1]);
-        if (hi) *reinterpret_cast<__nv_bfloat162*>(o_hi + col) = __floats2bfloat162_rn(acc[2], acc[3]);
-      };
-#pragma unroll 2
-      for (int dp = 0; dp < D / 16; ++dp) {
-        float acc[2][4] = {};
-#pragma unroll
-        for (int kk = 0; kk < KT; ++kk) {
-          uint32_t b[4];
-          ldsm_x4_t(b, Vs + rowV[kk] * LDS + hoff + dp * 16 + (lane >> 4) * 8);
-          mma_bf16(acc[0], p[kk], b[0], b[1]);
-          mma_bf16(acc[1], p[kk], b[2], b[3]);
-        }
-        put(acc[0], dp * 16);
-        put(acc[1], dp * 16 + 8);
-      }
-      if (D & 8) {
-        float acc[4] = {};
-#pragma unroll
-        for (int kk = 0; kk < KT; ++kk) {
-          uint32_t b[2];
-          ldsm_x2_t(b, Vs + rowV[kk] * LDS + hoff + D - 8);
-          mma_bf16(acc, p[kk], b[0], b[1]);
-        }
-        put(acc, D - 8);
-      }
+      put(acc[0], dp * 16);
+      put(acc[1], dp * 16 + 8);
     }
-    __syncthreads();
-
-    // the unit's output slab, 16 bytes a thread
-    const size_t base = unit_base(unit);
-    for (int e = threadIdx.x; e < F * vpr; e += blockDim.x) {
-      const int f = e / vpr, j = e - f * vpr;
-      *reinterpret_cast<uint4*>(o + base + (size_t)f * C + j * 8) =
-          *reinterpret_cast<const uint4*>(Qs + f * LDS + j * 8);
+    if (D & 8) {
+      float acc[4] = {};
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk) {
+        uint32_t b[2];
+        ldsm_x2_t(b, Vs + rowV[kk] * LDS + hoff + D - 8);
+        mma_bf16(acc, p[kk], b[0], b[1]);
+      }
+      put(acc, D - 8);
     }
-    __syncthreads();  // the next copy into this stage waits for the stores' reads
-    if (stages == 1 && next < units) load(next, sm);
+  }
+  __syncthreads();
+
+  // the unit's output slab, 16 bytes a thread
+  for (int e = threadIdx.x; e < F * vpr; e += blockDim.x) {
+    const int f = e / vpr, j = e - f * vpr;
+    *reinterpret_cast<uint4*>(o + base + (size_t)f * C + j * 8) =
+        *reinterpret_cast<const uint4*>(Qs + f * LDS + j * 8);
   }
 }
+
+constexpr int kMaxDevices = 16;
 
 // The device's SM count and opt-in shared memory per block, read once per
 // process and device.
 struct DeviceInfo {
   int dev, sms, optin;
 };
-DeviceInfo device_info() {
-  static int sms[16] = {}, optin[16] = {};
+cudaError_t device_info(DeviceInfo* info) {
+  static int sms[kMaxDevices] = {}, optin[kMaxDevices] = {};
   int dev = 0;
-  cudaGetDevice(&dev);
-  dev = std::min(dev, 15);
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (sms[dev] == 0) {
-    cudaDeviceGetAttribute(&optin[dev], cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    e = cudaDeviceGetAttribute(&optin[dev], cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
   }
-  return {dev, sms[dev], optin[dev]};
+  *info = {dev, sms[dev], optin[dev]};
+  return cudaSuccess;
 }
 
 template <int KT>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int N, int F, int H, int D,
                 float scale, cudaStream_t stream) {
   auto kern = temporal_fwd_bf16<KT>;
-  const DeviceInfo info = device_info();
-  const int sms = info.sms, optin = info.optin;
-  static bool attributes_set[16] = {};  // per instance and device, before its first launch
+  DeviceInfo info;
+  cudaError_t e = device_info(&info);
+  if (e != cudaSuccess) return (int)e;
+  static bool attributes_set[kMaxDevices] = {};  // per instance and device, before its first launch
   if (!attributes_set[info.dev]) {
-    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, info.optin);
     if (e == cudaSuccess)
       e = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
     if (e != cudaSuccess) return (int)e;
     attributes_set[info.dev] = true;
   }
-  auto stage_bytes = [&](int hg) { return 3 * F * seg_stride(hg * D) * (int)sizeof(bf16); };
-  // the largest head group that fits a stage and leaves two units per SM
+  auto unit_bytes = [&](int hg) { return 3 * F * seg_stride(hg * D) * (int)sizeof(bf16); };
+  // the largest head group that fits the unit budget and leaves two units per SM
   int hg = H;
   for (; hg > 1; --hg)
-    if (H % hg == 0 && stage_bytes(hg) <= kStageBytes && (long)N * (H / hg) >= 2L * sms) break;
-  const int stages = 2 * stage_bytes(hg) <= optin ? 2 : 1;
-  const int smem = stages * stage_bytes(hg);
-  if (smem > optin) return (int)cudaErrorInvalidValue;
+    if (H % hg == 0 && unit_bytes(hg) <= kUnitBytes && (long)N * (H / hg) >= 2L * info.sms) break;
+  const int smem = unit_bytes(hg);
+  if (smem > info.optin) return (int)cudaErrorInvalidValue;
   const int threads = std::min(hg * cdiv(F, 16), kMaxWarps) * 32;
-  int per_sm = 0;
-  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads, smem);
-  if (e != cudaSuccess) return (int)e;
-  const int units = N * (H / hg);
-  const int grid = std::min(units, sms * std::max(per_sm, 1));
-  kern<<<grid, threads, smem, stream>>>((const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o,
-                                        F, H, D, hg, units, stages, scale);
+  kern<<<N * (H / hg), threads, smem, stream>>>((const bf16*)q, (const bf16*)k, (const bf16*)v,
+                                                (bf16*)o, F, H, D, hg, scale);
   return (int)cudaGetLastError();
 }
 

@@ -4,9 +4,9 @@ joins them.
 
 The forward replaces synfmc_tpu/ops/temporal_attention.py:_fwd_kernel.  The
 kernel (csrc/temporal_fwd.cu) is bound by bytes: rows are independent, so
-persistent blocks stream (row, head group) slabs through a two-stage
-cp.async ring and run both products on mma.sync tensor cores (bf16; the
-fp32 instance stays on the CUDA cores).
+each block copies one (row, head group) slab with cp.async and runs both
+products on mma.sync tensor cores (bf16; the fp32 instance stays on the
+CUDA cores).
 
 The backward replaces _bwd_kernel with csrc/temporal_bwd.cu: the same row
 independence, so each block recomputes its rows' F x F softmax and writes

@@ -55,8 +55,8 @@ def test_flash_kernel(gen, dtype, b, s, h, d):
     (16, 16, 8, 40), (16, 16, 8, 80), (16, 16, 8, 160),  # F = 16: k = 8 tail, 5 and 10 k-steps
     (8, 24, 8, 160),  # key tiles padded to 32, the second query tile half empty
     (8, 64, 2, 32), (24, 3, 1, 8),  # four query tiles; one tile of 3 and D < 16
-    (8, 16, 5, 40), (1000, 16, 5, 40),  # 5 heads; units left over after one persistent pass
-    (136, 48, 1, 400),  # a one-stage ring: two stages exceed shared memory
+    (8, 16, 5, 40), (1000, 16, 5, 40),  # 5 heads: one head per block; all five in one block
+    (136, 48, 1, 400),  # a unit above 48 KB of shared memory (the opt-in limit)
 ])
 def test_temporal_kernel(gen, dtype, n, f, h, d):
     from synfmc_tpu_torch.ops.temporal_attention import (
