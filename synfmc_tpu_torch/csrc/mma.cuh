@@ -1,6 +1,8 @@
 // Warp-level tensor-core helpers shared by the attention kernels: ldmatrix,
-// mma.sync m16n8k16 and m16n8k8 (bf16 in, fp32 accumulate), cp.async, and
-// the padded shared-memory tile layout both flash directions use.
+// mma.sync m16n8k16 and m16n8k8 (bf16 in, fp32 accumulate), cp.async, the
+// padded shared-memory tile layout both flash directions use, the packed
+// row slabs of both temporal directions, and the device's SM count and
+// opt-in shared memory.
 #pragma once
 
 #include "common.cuh"
@@ -117,6 +119,33 @@ __device__ __forceinline__ void load_tile_scaled(const __nv_bfloat16* __restrict
     }
     *reinterpret_cast<uint4*>(dst + r * lds<DP>() + dv * 8) = val;
   }
+}
+
+// Shared row stride (elements) of a packed row segment of `seg` columns: an
+// odd number of 16-byte chunks, so the 8 rows an ldmatrix reads fall on
+// distinct banks.
+__host__ __device__ inline int seg_stride(int seg) { return seg + ((seg / 8) % 2 ? 0 : 8); }
+
+constexpr int kMaxDevices = 16;
+
+// The device's SM count and opt-in shared memory per block, read once per
+// process and device.
+struct DeviceInfo {
+  int dev, sms, optin;
+};
+inline cudaError_t device_info(DeviceInfo* info) {
+  static int sms[kMaxDevices] = {}, optin[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (sms[dev] == 0) {
+    e = cudaDeviceGetAttribute(&optin[dev], cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+  }
+  *info = {dev, sms[dev], optin[dev]};
+  return cudaSuccess;
 }
 
 inline cudaError_t set_smem(const void* fn, size_t bytes) {

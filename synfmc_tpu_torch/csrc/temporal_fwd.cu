@@ -62,10 +62,6 @@ using bf16 = __nv_bfloat16;
 constexpr int kMaxWarps = 16;
 constexpr int kUnitBytes = 48 * 1024;  // target for one unit's shared memory
 
-// Shared row stride (elements) of a segment of `seg` columns: an odd number
-// of 16-byte chunks.
-__host__ __device__ inline int seg_stride(int seg) { return seg + ((seg / 8) % 2 ? 0 : 8); }
-
 // KT key tiles of 16: F <= 16 * KT.  A block owns one unit; its shared
 // memory is [3][F][LDS] (q, k, v; the output overwrites q).
 template <int KT>
@@ -218,28 +214,6 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     *reinterpret_cast<uint4*>(o + base + (size_t)f * C + j * 8) =
         *reinterpret_cast<const uint4*>(Qs + f * LDS + j * 8);
   }
-}
-
-constexpr int kMaxDevices = 16;
-
-// The device's SM count and opt-in shared memory per block, read once per
-// process and device.
-struct DeviceInfo {
-  int dev, sms, optin;
-};
-cudaError_t device_info(DeviceInfo* info) {
-  static int sms[kMaxDevices] = {}, optin[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (sms[dev] == 0) {
-    e = cudaDeviceGetAttribute(&optin[dev], cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return e;
-  }
-  *info = {dev, sms[dev], optin[dev]};
-  return cudaSuccess;
 }
 
 template <int KT>

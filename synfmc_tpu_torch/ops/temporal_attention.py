@@ -9,8 +9,10 @@ products on mma.sync tensor cores (bf16; the fp32 instance stays on the
 CUDA cores).
 
 The backward replaces _bwd_kernel with csrc/temporal_bwd.cu: the same row
-independence, so each block recomputes its rows' F x F softmax and writes
-dQ, dK and dV without any cross-block sum.
+independence, so each block copies one (row, head group) unit of q, k, v and
+dO with cp.async, recomputes its F x F softmax, and runs the five products
+on mma.sync tensor cores (bf16; the fp32 instance stays on the CUDA cores),
+with no cross-block sum.
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises.

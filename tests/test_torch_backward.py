@@ -10,7 +10,10 @@ Shapes, fp32, each chosen to reach one TPU kernel:
                                 whole-sequence kernel: _bwd_single_fits is false);
   K7 _bwd_kernel (padded)       S=260, through _prep / _bwd, where the forward
                                 is K4, _fwd;
-  K8 temporal _bwd_kernel       N=16, F=16, 2 heads of 8.
+  K8 temporal _bwd_kernel       N=16, F=16, 2 heads of 8; and the CUDA
+                                kernel's shape classes: F=24 (two 16-key
+                                tiles, the second half empty) at D=40 (an
+                                m16n8k8 tail), and F=3 with one head.
 Tolerance: 1e-5 absolute plus 1e-4 relative (fp32 sums in another order).
 """
 
@@ -67,8 +70,8 @@ def test_flash_bwd_plain_matches_pallas_interpret(rng, kernel, b, s):
         np.testing.assert_allclose(out.numpy(), want_out, **TOL)
 
 
-def test_temporal_bwd_plain_matches_pallas_interpret(rng):
-    n, f, h, d = 16, 16, 2, 8
+@pytest.mark.parametrize("n,f,h,d", [(16, 16, 2, 8), (8, 24, 2, 40), (8, 3, 1, 16)])
+def test_temporal_bwd_plain_matches_pallas_interpret(rng, n, f, h, d):
     q, k, v, g = (_normal(rng, n, f, h * d) for _ in range(4))
     scale = d ** -0.5
     _, vjp = jax.vjp(lambda *a: jax_temporal(*a, scale, h, True), *map(jnp.asarray, (q, k, v)))

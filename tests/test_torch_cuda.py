@@ -119,8 +119,20 @@ def test_flash_bwd_kernel(gen, dtype, b, s, h, d):
     assert_grads_close(got, want, dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("n,f,h,d", [(16, 16, 8, 40), (8, 24, 8, 160), (8, 64, 2, 32), (24, 3, 1, 8)])
+# The first four cases, then the tensor-core kernel's edges: the m16n8k8
+# tail of D = 40 at a level-0-like shape, the mid block's F = 24 with one
+# head a block, an H with no even divisor (few and many units), and a unit
+# above 48 KB of shared memory (bf16 only: the fp32 kernel cannot hold one
+# head of that size).
+TEMPORAL_BWD_CASES = [
+    (16, 16, 8, 40), (8, 24, 8, 160), (8, 64, 2, 32), (24, 3, 1, 8),
+    (64, 16, 8, 40), (16, 24, 8, 160), (8, 16, 5, 40), (1000, 16, 5, 40),
+]
+
+
+@pytest.mark.parametrize("dtype,n,f,h,d", [
+    (dtype, *case) for case in TEMPORAL_BWD_CASES for dtype in (torch.bfloat16, torch.float32)
+] + [(torch.bfloat16, 136, 48, 1, 400)])
 def test_temporal_bwd_kernel(gen, dtype, n, f, h, d):
     from synfmc_tpu_torch.ops.temporal_attention import (
         temporal_attention_bwd,
