@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (synfmc_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py --passes [ROOT]
 
 Phases, each raising on failure (non-zero exit):
   1. device   - needs CUDA; prints the card's name and power limit;
@@ -40,12 +41,18 @@ Phases, each raising on failure (non-zero exit):
                 gradient's largest magnitude), the flash backward at the
                 stand-in shapes of K6 (2x6144x(8x40)) and K7 (2x1617x(8x40)),
                 one fp32 case each (< 1e-4 of the largest magnitude), times
-                against the bound, the plain version and SDPA's backward, and
-                the GroupNorm backward (PyTorch ops, not a kernel) timed.
+                against the bound, the plain version and SDPA's backward, the
+                GroupNorm backward (PyTorch ops, not a kernel) timed, and the
+                flash backward's passes (prologue, dK/dV, dQ) by device time
+                at the train step's spatial keys, level 0 first.
 ``--profile`` adds a torch.profiler trace of one request's denoise loop and of
 one extra train step: device time by kernel family and the device's idle
 share.  The last two lines of stdout are the kernels' JSON summary and
 {"ok": true, "device": {...}}.
+
+``--passes [ROOT]`` only times the flash backward's passes at the train
+step's two spatial keys, with the port package of the tree at ROOT (default:
+this one), so that two trees compare in one run.
 """
 
 from __future__ import annotations
@@ -471,6 +478,65 @@ def check_bwd(seen, rates):
         _, rel = _bwd_errors(kind, key, kern(*sets[0]), plain(*sets[0]), ok, F32_TOL)
         log(f"  {kind:12s} fp32 {key[1:4]} max err {rel:.2e} of the largest gradient")
     return results
+
+
+def flash_bwd_passes(b, s, c, heads, reps=10):
+    """Device ms of each pass of the flash backward (kernel names flash_bwd_*)
+    per call at (b, s, c, heads) in bf16, from a torch.profiler trace of
+    ``reps`` calls queued back to back."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from synfmc_tpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_fwd
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v, do = (torch.randn(b, s, c, generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    scale = (c // heads) ** -0.5
+    o, lse = flash_attention_fwd(q, k, v, scale, heads, with_lse=True)
+    for _ in range(3):
+        flash_attention_bwd(q, k, v, o, lse, do, scale, heads)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flash_attention_bwd(q, k, v, o, lse, do, scale, heads)
+        torch.cuda.synchronize()
+    passes = Counter()
+    for e in prof.events():
+        found = re.search(r"flash_bwd_(?:prologue|delta|dkdv|dq)", e.name)
+        if e.device_type == torch.autograd.DeviceType.CUDA and found:
+            passes[found.group(0)] += (
+                e.time_range.end - e.time_range.start) / 1e3 / reps
+    if not passes:
+        raise AssertionError("flash_bwd_passes: the trace holds no flash_bwd kernel")
+    return {"shape": [b, s, c, heads], "passes_device_ms": dict(passes),
+            "total_device_ms": sum(passes.values())}
+
+
+def library_bwd_kernels(b, s, c, heads, reps=10):
+    """SDPA's backward at (b, s, c, heads) in bf16: device ms per call of each
+    kernel it launches, from a torch.profiler trace of ``reps`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    d = c // heads
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    ins = [torch.randn(b, heads, s, d, generator=gen, device="cuda").to(torch.bfloat16)
+           .requires_grad_() for _ in range(3)]
+    out = F.scaled_dot_product_attention(*ins, scale=d ** -0.5)
+    g = torch.randn_like(out)
+    for _ in range(3):
+        torch.autograd.grad(out, ins, g, retain_graph=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            torch.autograd.grad(out, ins, g, retain_graph=True)
+        torch.cuda.synchronize()
+    kernels = Counter()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[e.name[:90]] += (e.time_range.end - e.time_range.start) / 1e3 / reps
+    return {"shape": [b, s, c, heads], "library_kernels_device_ms": dict(kernels.most_common(6))}
 
 
 def time_gn_bwd(seen, rates):
@@ -930,16 +996,36 @@ def summarise(results, launches):
     return summary
 
 
+def passes_only(root: str) -> int:
+    """``--passes [ROOT]``: the flash backward's per-pass device times at the
+    train step's two spatial keys, with the port package of the tree at ROOT
+    (default: this one), for comparing two trees in one call."""
+    sys.path.insert(0, os.path.abspath(root))
+    from synfmc_tpu_torch.ops import _cuda
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    log(f"[passes] {_cuda.__file__}; {smi}")
+    _cuda.build_all(("flash_fwd", "flash_bwd"))
+    for b, s, c, heads in ((16, 1536, 320, 8), (16, 384, 640, 8)):
+        log(f"[passes] {json.dumps(flash_bwd_passes(b, s, c, heads))}")
+        log(f"[passes] {json.dumps(library_bwd_kernels(b, s, c, heads))}")
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a GPU",
               file=sys.stderr)
         return 2
+    args = sys.argv[1:]
+    if args[:1] == ["--passes"]:
+        return passes_only(args[1] if len(args) > 1 else REPO)
     sys.path.insert(0, REPO)
     from synfmc_tpu_torch.ops import _cuda
     from synfmc_tpu_torch.pipelines.factory import build_pipeline
 
-    profile = "--profile" in sys.argv[1:]
+    profile = "--profile" in args
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
@@ -1003,6 +1089,9 @@ def main() -> int:
     bwd_seen["flash_bwd"][K6_KEY] = bwd_seen["flash_bwd"][K47_KEY] = 0
     results.update(check_bwd(bwd_seen, rates))
     time_gn_bwd(tr["seen"]["group_norm_bwd"], rates)
+    passes = [flash_bwd_passes(*key[1:5])
+              for key in sorted(tr["seen"]["flash_bwd"], key=lambda k: -k[2])]
+    log(f"[backward] flash_bwd passes by device time (level 0 first): {json.dumps(passes)}")
 
     print(json.dumps({"kernels": summarise(results, launches)}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

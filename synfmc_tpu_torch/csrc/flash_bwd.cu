@@ -12,38 +12,85 @@
 // accumulation.  One design covers all three: the tiles mask any S, and no
 // block needs the whole sequence resident.
 //
-// Bound: operations at the UNet's level 0 (B=16, S=1536, H=8, D=40: 5 products
-// of 2*S^2*D per (b, h), 48 GFLOP on 63 MB), bytes at level 1 (S=384, D=80).
-// The TPU kernels carried dK/dV accumulators (or a head's whole K/V) in VMEM
-// across a sequential grid.  Hopper blocks run in no order and nothing
-// carries over between them, so the work splits three ways, deterministic
-// and without atomics:
-//   1. flash_bwd_delta: delta = rowsum(dO * O) in fp32 from K1's saved
-//      output, one thread per (row, head);
-//   2. flash_bwd_dkdv:  one block per (key tile of 64, head, batch row), 4
-//      warps of 16 keys; it keeps K, V and the dK/dV accumulators on chip
-//      and loops over query tiles, recomputing P^T = exp(K q'^T - lse) from
-//      the log-sum-exp K1 saved;
-//   3. flash_bwd_dq:    one block per (query tile of 64, head, batch row),
-//      4 warps of 16 queries; it loops over key tiles (double-buffered with
-//      cp.async) and accumulates dQ in registers.
-// Both main kernels run mma.sync m16n8k16 (bf16 in, fp32 accumulate) with
-// the fragment conventions of flash_fwd.cu: products whose A operand is a
-// probability or dS tile take it straight from the accumulator registers,
-// B operands come through ldmatrix (.trans where the contraction runs over
-// rows), shared rows are padded by 16 bytes.  The head dim is padded to a
-// multiple of 16 (40 -> 48) and is a template parameter.
+// What the TPU kept in VMEM.  _bwd_packed_single_kernel held a batch row's
+// whole q, k, v, dO (all heads) and the per-head S x S logits, P and dS in
+// VMEM (up to 80 MB); _bwd_packed_kernel and _bwd_kernel held one q-block
+// and a head's whole K/V, and carried fp32 dK/dV accumulators in VMEM
+// scratch from one sequential grid step to the next.  A Hopper block has at
+// most 227 KB of shared memory, blocks run in no order, and nothing carries
+// over between them, so the work splits into three passes:
+//   1. flash_bwd_prologue: q' = bf16(q * scale) into a (B, S, H*D) scratch
+//      buffer, so both main passes copy q' with 16-byte cp.async like any
+//      other tile (the rounding point stays the reference's: q' is rounded
+//      before its products), and delta = rowsum(dO * O) in fp32 from K1's
+//      saved output.  Each thread takes 16-byte chunks of whole rows;
+//      a chunk's partial dot product goes through shared memory and one
+//      thread per (row, head) adds its head's partials in a fixed order;
+//   2. flash_bwd_dkdv: one block per (key tile, head, batch row).  K and V
+//      stay resident, their A fragments in registers, the dK/dV accumulators
+//      in registers; tiles of q', dO, lse and delta stream through a ring.
+//      It recomputes P^T = exp(K q'^T - lse) from the log-sum-exp K1 saved
+//      and runs four products per tile: S^T, dV += P^T dO, dP^T = V dO^T,
+//      dK += dS^T q';
+//   3. flash_bwd_dq: one block per (query tile, head, batch row).  q' and dO
+//      stay resident, their A fragments in registers; K/V tiles stream
+//      through a ring; three products per tile: S, dP, dQ += dS K.
+//
+// Deterministic.  Seven products where five would do: the two passes both
+// recompute S and dP.  Folding dQ into pass 2 needs a sum of dQ across key
+// blocks, which is either an fp32 atomicAdd (its order changes from run to
+// run) or an ordered semaphore between blocks.  Here each output element is
+// written by exactly one block, which sums over the other side in a fixed
+// loop order, and delta's partials add in a fixed order: dq, dk and dv are
+// the same bits on every run, as the JAX package's backward is.
+//
+// Bounds on the H100 (989 TFLOP/s bf16, 3.35 TB/s).  Passes 2 and 3 are
+// bound by operations at the UNet's level 0 (B=16, S=1536, H=8, D=40: 5
+// products of 2*S^2*D per (b, h), 121 GFLOP against 110 MB of q, k, v, dO,
+// dq, dk, dv: 0.122 ms) and by bytes at level 1 (S=384, D=80); the prologue
+// by bytes (q, O, dO read, q' and delta written).  In practice the mma.sync path is held by the tensor
+// pipe's instruction rate and by the ldmatrix reads that feed it, not by the
+// exponentials: so the A operand of every product stays in registers, a warp
+// owns two m16 tiles at DK <= 48 (each B fragment read with ldmatrix feeds
+// both), and DK % 16 == 8 (D = 40) ends each product with an m16n8k8 step or
+// an n = 8 tile instead of padding to 48.  wgmma with TMA, the Hopper-only
+// route with twice the tensor rate and B read from shared memory without
+// ldmatrix, is a later step.
+//
+// The ring.  A block keeps kStages buffers of one streamed tile (32 rows of
+// each operand, 16-byte cp.async with zero fill past S and D; lse and delta
+// by 4-byte cp.async).  Before tile i's products the block waits for tile
+// i's copies (cp.async.wait_group kStages-2), passes one barrier, and starts
+// the copies of tile i+kStages-1 into the buffer tile i-1 used, so up to
+// kStages-1 tiles are in flight under the products; one barrier per tile.
+// Rows past S: a padded query row has q' = dO = 0 and lse = delta = 0, so
+// its P is 1 but it adds 0 to dV (dO = 0) and to dK (dS = 1 * (0 - 0));
+// padded keys are masked to P = 0 in pass 3 and not stored by pass 2.
+//
+// Tiles by DK (D rounded up to 8; Tiles<DK> below).  DK <= 48: warps of two
+// m-tiles (32 rows), 4 warps a block in both passes (128 resident rows), 4
+// stages.  48 < DK <= 128: one m-tile a warp, 4 warps (64 keys) in pass 2
+// and 8 (128 queries) in pass 3, 3 stages.  DK > 128: one m-tile a warp, 4
+// warps (64 rows), 2 stages.  Streamed tiles are 32 rows; the most shared
+// memory a block takes is 136 KB (DK = 256, pass 2).
+//
+// All products run mma.sync m16n8k16 (bf16 in, fp32 accumulate; m16n8k8 for
+// the last 8 columns of D = 40) with ldmatrix, the route of flash_fwd.cu and
+// temporal_*.cu: products whose A operand is a probability or dS tile take it
+// straight from the accumulator registers, B operands come through ldmatrix
+// (.trans where the contraction runs over rows), shared rows are padded by
+// 16 bytes.  The launcher sets each instance's shared-memory attribute once
+// per device.
 //
 // fp32: CUDA-core kernels (one thread per key for dK/dV, one per query for
-// dQ) on the same three-pass plan, for exact float32 checks.
+// dQ) on the same three-pass plan, delta in its own pass and q scaled in
+// registers, for exact float32 checks.
 #include "mma.cuh"
 
 namespace {
 
 using namespace synfmc;
-
-constexpr int BT = 64;  // rows per tile: keys of a dK/dV block, queries of a dQ block
-constexpr int kWarps = BT / 16;
+using bf16 = __nv_bfloat16;
 
 template <typename T>
 __global__ void flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout,
@@ -67,211 +114,404 @@ __global__ void flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ d
   delta[((size_t)b * H + h) * S + s] = acc;
 }
 
-// A 16 x 64 warp product C = A B^T with A rows from shared (16 rows at
-// `arow`) and B rows from shared (64 rows at `brow`), both [row][d] over DP.
-template <int DP>
-__device__ __forceinline__ void warp_abt(float (&c)[BT / 8][4], const __nv_bfloat16* arow,
-                                         const __nv_bfloat16* brow, int lane) {
-  constexpr int LDS = lds<DP>();
+// Pass 1 (bf16): q' = bf16(q * scale) and delta = rowsum(dO * O).  A block
+// owns `rows` whole rows; each thread takes 16-byte chunks (neighbouring
+// threads, neighbouring addresses), keeps each chunk's partial dot product
+// in shared memory, and after one barrier a thread per (row, head) adds its
+// head's D/8 partials in a fixed order.
+__global__ void flash_bwd_prologue(const bf16* __restrict__ q, const bf16* __restrict__ o,
+                                   const bf16* __restrict__ dout, bf16* __restrict__ qs,
+                                   float* __restrict__ delta, int B, int S, int H, int D,
+                                   int rows, float scale) {
+  extern __shared__ float part[];  // [rows][C / 8]
+  const int C = H * D, cpr = C / 8;
+  const size_t row0 = (size_t)blockIdx.x * rows;
+  const long long left = (long long)B * S - (long long)row0;
+  const int nrows = left < rows ? (int)left : rows;
+  const size_t base = row0 * C;
+  for (int e = threadIdx.x; e < nrows * cpr; e += blockDim.x) {
+    const size_t off = base + (size_t)e * 8;
+    const uint4 po = *reinterpret_cast<const uint4*>(o + off);
+    const uint4 pd = *reinterpret_cast<const uint4*>(dout + off);
+    uint4 pq = *reinterpret_cast<const uint4*>(q + off);
+    const bf16* eo = reinterpret_cast<const bf16*>(&po);
+    const bf16* ed = reinterpret_cast<const bf16*>(&pd);
+    bf16* eq = reinterpret_cast<bf16*>(&pq);
+    float acc = 0.f;
 #pragma unroll
-  for (int j = 0; j < BT / 8; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
+    for (int j = 0; j < 8; ++j) {
+      acc += __bfloat162float(eo[j]) * __bfloat162float(ed[j]);
+      eq[j] = __float2bfloat16(__bfloat162float(eq[j]) * scale);
+    }
+    *reinterpret_cast<uint4*>(qs + off) = pq;
+    part[e] = acc;
+  }
+  __syncthreads();
+  const int cph = D / 8;  // chunks a head
+  for (int i = threadIdx.x; i < nrows * H; i += blockDim.x) {
+    const int r = i / H, h = i % H;
+    const float* p = part + r * cpr + h * cph;
+    float acc = 0.f;
+    for (int c = 0; c < cph; ++c) acc += p[c];
+    const size_t bs = row0 + r;
+    delta[((bs / S) * H + h) * S + bs % S] = acc;
+  }
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Tile shapes by DK, the head dim rounded up to 8 (DP: up to 16).  Pass 2
+// takes 4 warps; pass 3 takes 8 at 48 < DK <= 128.  The minimum resident
+// blocks cap registers so that 3 pass-3 blocks (DK <= 48) or 2 (DK <= 80)
+// share an SM.
+template <int DK> struct Tiles {
+  static constexpr int kDP = (DK + 15) / 16 * 16;
+  static constexpr int kMT = DK <= 48 ? 2 : 1;  // m16 tiles a warp owns
+  static constexpr int kWarpsKV = 4;
+  static constexpr int kWarpsQ = (DK <= 48 || DK > 128) ? 4 : 8;
+  static constexpr int kResKV = 16 * kMT * kWarpsKV;  // keys a pass-2 block owns
+  static constexpr int kResQ = 16 * kMT * kWarpsQ;    // queries a pass-3 block owns
+  static constexpr int kMinBlocksKV = DK <= 48 ? 2 : 1;  // blocks an SM keeps resident
+  static constexpr int kMinBlocksQ = DK <= 48 ? 3 : (DK <= 80 ? 2 : 1);
+  static constexpr int kStream = 32;  // streamed rows a stage
+  static constexpr int kStages = DK <= 48 ? 4 : (DK <= 128 ? 3 : 2);
+  static constexpr int kLds = lds<kDP>();
+  static constexpr int kTile = kStream * kLds;  // elements of one streamed operand tile
+  // pass 2: K, V resident; a stage holds q', dO, lse and delta
+  static constexpr size_t kDkdvSmem =
+      2 * (size_t)kResKV * kLds * sizeof(bf16) +
+      (size_t)kStages * (2 * kTile * sizeof(bf16) + 2 * kStream * sizeof(float));
+  // pass 3: q', dO resident; a stage holds K and V
+  static constexpr size_t kDqSmem =
+      2 * (size_t)kResQ * kLds * sizeof(bf16) + (size_t)kStages * 2 * kTile * sizeof(bf16);
+};
+
+// The A fragments of a warp's 16*MT rows over the head dim, held in
+// registers: k-steps of 16, then one of 8 when DK % 16 == 8.
+template <int DK, int MT> struct ARows {
+  static constexpr int kFull = DK / 16;
+  static constexpr bool kTail = DK % 16 != 0;
+  uint32_t full[MT][kFull > 0 ? kFull : 1][4];
+  uint32_t tail[MT][2];
+
+  // from shared rows [row][d] (the warp's first row at `rows`)
+  __device__ __forceinline__ void load(const bf16* rows, int lane) {
+    constexpr int LDS = Tiles<DK>::kLds;
 #pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
-    uint32_t a[4];
-    ldsm_x4(a, arow + (lane & 15) * LDS + kk * 16 + (lane >> 4) * 8);
+    for (int m = 0; m < MT; ++m) {
+      const bf16* r = rows + (m * 16 + (lane & 15)) * LDS;
 #pragma unroll
-    for (int jp = 0; jp < BT / 16; ++jp) {
+      for (int kk = 0; kk < kFull; ++kk) ldsm_x4(full[m][kk], r + kk * 16 + (lane >> 4) * 8);
+      if (kTail) ldsm_x2(tail[m], r + kFull * 16);
+    }
+  }
+};
+
+// C (MT x 16 rows x N cols) = A B^T over the head dim, A in registers, B's N
+// rows in shared at `brow` ([row][d]).
+template <int DK, int MT, int N>
+__device__ __forceinline__ void warp_abt(float (&c)[MT][N / 8][4], const ARows<DK, MT>& a,
+                                         const bf16* brow, int lane) {
+  constexpr int LDS = Tiles<DK>::kLds, FULL = DK / 16;
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) c[m][j][0] = c[m][j][1] = c[m][j][2] = c[m][j][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < FULL; ++kk)
+#pragma unroll
+    for (int jp = 0; jp < N / 16; ++jp) {
       uint32_t bb[4];
       ldsm_x4(bb, brow + (jp * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDS + kk * 16 +
                       ((lane >> 3) & 1) * 8);
-      mma_bf16(c[2 * jp], a, bb[0], bb[1]);
-      mma_bf16(c[2 * jp + 1], a, bb[2], bb[3]);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        mma_bf16(c[m][2 * jp], a.full[m][kk], bb[0], bb[1]);
+        mma_bf16(c[m][2 * jp + 1], a.full[m][kk], bb[2], bb[3]);
+      }
+    }
+  if (DK % 16 != 0) {  // the last 8 columns of the head: one k = 8 step
+#pragma unroll
+    for (int jp = 0; jp < N / 16; ++jp) {
+      uint32_t bb[2];
+      ldsm_x2(bb, brow + (jp * 16 + (lane & 15)) * LDS + FULL * 16);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        mma_bf16_k8(c[m][2 * jp], a.tail[m], bb[0]);
+        mma_bf16_k8(c[m][2 * jp + 1], a.tail[m], bb[1]);
+      }
     }
   }
 }
 
-// acc (16 x DP) += X (16 x 64, fp32 fragments rounded to bf16) times the 64
-// shared rows at `rows` ([row][d] over DP): the contraction runs over rows.
-template <int DP>
-__device__ __forceinline__ void warp_xb(float (&acc)[DP / 8][4], float (&x)[BT / 8][4],
-                                        const __nv_bfloat16* rows, int lane) {
-  constexpr int LDS = lds<DP>();
+// acc (MT x 16 x DK) += X (MT x 16 x N, fp32 fragments rounded to bf16) times
+// the N shared rows at `rows` ([row][d]): the contraction runs over rows.
+template <int DK, int MT, int N>
+__device__ __forceinline__ void warp_xb(float (&acc)[MT][DK / 8][4], const float (&x)[MT][N / 8][4],
+                                        const bf16* rows, int lane) {
+  constexpr int LDS = Tiles<DK>::kLds, FULL = DK / 16;
 #pragma unroll
-  for (int kk = 0; kk < BT / 16; ++kk) {
-    const uint32_t a[4] = {pack_bf16(x[2 * kk][0], x[2 * kk][1]),
-                           pack_bf16(x[2 * kk][2], x[2 * kk][3]),
-                           pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
-                           pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3])};
+  for (int kk = 0; kk < N / 16; ++kk) {
+    uint32_t a[MT][4];
 #pragma unroll
-    for (int dp = 0; dp < DP / 16; ++dp) {
+    for (int m = 0; m < MT; ++m) {
+      a[m][0] = pack_bf16(x[m][2 * kk][0], x[m][2 * kk][1]);
+      a[m][1] = pack_bf16(x[m][2 * kk][2], x[m][2 * kk][3]);
+      a[m][2] = pack_bf16(x[m][2 * kk + 1][0], x[m][2 * kk + 1][1]);
+      a[m][3] = pack_bf16(x[m][2 * kk + 1][2], x[m][2 * kk + 1][3]);
+    }
+    const bf16* r = rows + (kk * 16 + (lane & 15)) * LDS;
+#pragma unroll
+    for (int dp = 0; dp < FULL; ++dp) {
       uint32_t bb[4];
-      ldsm_x4_t(bb, rows + (kk * 16 + (lane & 15)) * LDS + dp * 16 + (lane >> 4) * 8);
-      mma_bf16(acc[2 * dp], a, bb[0], bb[1]);
-      mma_bf16(acc[2 * dp + 1], a, bb[2], bb[3]);
+      ldsm_x4_t(bb, r + dp * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        mma_bf16(acc[m][2 * dp], a[m], bb[0], bb[1]);
+        mma_bf16(acc[m][2 * dp + 1], a[m], bb[2], bb[3]);
+      }
+    }
+    if (DK % 16 != 0) {  // the last 8 columns: one n = 8 tile
+      uint32_t bb[2];
+      ldsm_x2_t(bb, r + FULL * 16);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) mma_bf16(acc[m][2 * FULL], a[m], bb[0], bb[1]);
     }
   }
 }
 
-// Rows r (g) and r + 8 (g + 8) of a 16 x DP warp accumulator, times `mul`,
-// to bf16 rows [row0 + g + 8r] of one head slice.
-template <int DP>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ dst,
-                                           const float (&acc)[DP / 8][4], int row0, int S, int C,
-                                           int col0, int D, float mul, int lane) {
+// Rows g and g + 8 of each 16 x DK warp accumulator tile, times `mul`, to
+// bf16 rows [row0 + 16m + g + 8r] of one head slice.
+template <int DK, int MT>
+__device__ __forceinline__ void store_rows(bf16* __restrict__ dst, const float (&acc)[MT][DK / 8][4],
+                                           int row0, int S, int C, int col0, int D, float mul,
+                                           int lane) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + g + 8 * r;
-    if (row >= S) continue;
-    __nv_bfloat16* out = dst + (size_t)row * C + col0;
+  for (int m = 0; m < MT; ++m)
 #pragma unroll
-    for (int n = 0; n < DP / 8; ++n) {
-      const int d = 8 * n + 2 * t;
-      if (d < D)
-        *reinterpret_cast<__nv_bfloat162*>(out + d) =
-            __floats2bfloat162_rn(acc[n][2 * r] * mul, acc[n][2 * r + 1] * mul);
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 16 * m + g + 8 * r;
+      if (row >= S) continue;
+      bf16* out = dst + (size_t)row * C + col0;
+#pragma unroll
+      for (int n = 0; n < DK / 8; ++n) {
+        const int d = 8 * n + 2 * t;
+        if (d < D)
+          *reinterpret_cast<__nv_bfloat162*>(out + d) =
+              __floats2bfloat162_rn(acc[m][n][2 * r] * mul, acc[m][n][2 * r + 1] * mul);
+      }
     }
-  }
 }
 
-template <int DP>
-__global__ void __launch_bounds__(kWarps * 32)
-    flash_bwd_dkdv(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                   const float* __restrict__ lse, const float* __restrict__ delta,
-                   __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int S, int H,
-                   int D, float scale) {
-  constexpr int LDS = lds<DP>();
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BT][LDS]
-  __nv_bfloat16* Vs = Ks + BT * LDS;                                // [BT][LDS]
-  __nv_bfloat16* Qs = Vs + BT * LDS;                                // [BT][LDS] q'
-  __nv_bfloat16* Ds = Qs + BT * LDS;                                // [BT][LDS] dO
-  float* Ls = reinterpret_cast<float*>(Ds + BT * LDS);              // [BT] lse
-  float* Es = Ls + BT;                                              // [BT] delta
+template <int MT, int N>
+__device__ __forceinline__ void zero(float (&c)[MT][N][4]) {
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int n = 0; n < N; ++n) c[m][n][0] = c[m][n][1] = c[m][n][2] = c[m][n][3] = 0.f;
+}
 
-  const int k0 = blockIdx.x * BT, h = blockIdx.y, b = blockIdx.z;
+// Pass 2: dK and dV of one (key tile, head, batch row).
+template <int DK>
+__global__ void __launch_bounds__(Tiles<DK>::kWarpsKV * 32, Tiles<DK>::kMinBlocksKV)
+    flash_bwd_dkdv(const bf16* __restrict__ qs, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                   const float* __restrict__ lse, const float* __restrict__ delta,
+                   bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int H, int D) {
+  using T = Tiles<DK>;
+  constexpr int DP = T::kDP, LDS = T::kLds, MT = T::kMT, BM = T::kStream, ST = T::kStages;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);            // [kResKV][LDS]
+  bf16* Vs = Ks + T::kResKV * LDS;                          // [kResKV][LDS]
+  bf16* Qs = Vs + T::kResKV * LDS;                          // [ST][BM][LDS] q'
+  bf16* Ds = Qs + ST * T::kTile;                            // [ST][BM][LDS] dO
+  float* Ls = reinterpret_cast<float*>(Ds + ST * T::kTile);  // [ST][BM] lse
+  float* Es = Ls + ST * BM;                                 // [ST][BM] delta
+
+  const int k0 = blockIdx.x * T::kResKV, h = blockIdx.y, b = blockIdx.z;
   const int C = H * D;
   const size_t base = (size_t)b * S * C;
   const size_t stat = ((size_t)b * H + h) * S;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int t = lane & 3;
+  const int nq = cdiv(S, BM);
 
-  load_tile<DP, BT>(k + base, Ks, k0, S, C, h * D, D);
-  load_tile<DP, BT>(v + base, Vs, k0, S, C, h * D, D);
-  float dk_acc[DP / 8][4], dv_acc[DP / 8][4];
-#pragma unroll
-  for (int n = 0; n < DP / 8; ++n)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) dk_acc[n][c] = dv_acc[n][c] = 0.f;
-
-  for (int q0 = 0; q0 < S; q0 += BT) {
-    __syncthreads();  // the previous query tile has been read
-    load_tile<DP, BT>(dout + base, Ds, q0, S, C, h * D, D);
-    cp_commit();
-    load_tile_scaled<DP, BT>(q + base, Qs, q0, S, C, h * D, D, scale);
-    for (int i = threadIdx.x; i < BT; i += blockDim.x) {
-      const int row = q0 + i;
-      Ls[i] = row < S ? lse[stat + row] : INFINITY;  // P = 0 past the sequence
-      Es[i] = row < S ? delta[stat + row] : 0.f;
+  auto load_stage = [&](int i) {
+    const int st = i % ST, q0 = i * BM;
+    load_tile<DP, BM>(qs + base, Qs + st * T::kTile, q0, S, C, h * D, D);
+    load_tile<DP, BM>(dout + base, Ds + st * T::kTile, q0, S, C, h * D, D);
+    for (int r = threadIdx.x; r < BM; r += blockDim.x) {
+      const bool ok = q0 + r < S;
+      cp_async4(Ls + st * BM + r, lse + stat + (ok ? q0 + r : 0), ok);
+      cp_async4(Es + st * BM + r, delta + stat + (ok ? q0 + r : 0), ok);
     }
-    cp_wait<0>();
-    __syncthreads();
+  };
 
-    // P^T = exp(K q'^T - lse): the warp's 16 keys x 64 queries
-    float pt[BT / 8][4];
-    warp_abt<DP>(pt, Ks + warp * 16 * LDS, Qs, lane);
+  load_tile<DP, T::kResKV>(k + base, Ks, k0, S, C, h * D, D);
+  load_tile<DP, T::kResKV>(v + base, Vs, k0, S, C, h * D, D);
+  cp_commit();
 #pragma unroll
-    for (int j = 0; j < BT / 8; ++j)
+  for (int i = 0; i < ST - 1; ++i) {
+    if (i < nq) load_stage(i);
+    cp_commit();
+  }
+  cp_wait<ST - 1>();  // K and V have landed
+  __syncthreads();
+  ARows<DK, MT> ka, va;  // the warp's keys, in registers for the whole loop
+  ka.load(Ks + warp * 16 * MT * LDS, lane);
+  va.load(Vs + warp * 16 * MT * LDS, lane);
+  float dk_acc[MT][DK / 8][4], dv_acc[MT][DK / 8][4];
+  zero(dk_acc);
+  zero(dv_acc);
+
+  for (int i = 0; i < nq; ++i) {
+    cp_wait<ST - 2>();  // tile i has landed (this thread's copies)
+    __syncthreads();    // everyone's copies, and tile i-1's buffer is free
+    if (i + ST - 1 < nq) load_stage(i + ST - 1);
+    cp_commit();  // possibly empty: keeps one group per tile
+    const int st = i % ST;
+    const bf16* Qt = Qs + st * T::kTile;
+    const bf16* Dt = Ds + st * T::kTile;
+    const float* Lt = Ls + st * BM;
+    const float* Et = Es + st * BM;
+
+    // P^T = exp(K q'^T - lse): the warp's 16*MT keys x BM queries
+    float pt[MT][BM / 8][4];
+    warp_abt<DK, MT, BM>(pt, ka, Qt, lane);
 #pragma unroll
-      for (int c = 0; c < 4; ++c) pt[j][c] = __expf(pt[j][c] - Ls[8 * j + 2 * t + (c & 1)]);
-    warp_xb<DP>(dv_acc, pt, Ds, lane);  // dV += P^T dO
+    for (int j = 0; j < BM / 8; ++j) {
+      const float l0 = Lt[8 * j + 2 * t] * kLog2e, l1 = Lt[8 * j + 2 * t + 1] * kLog2e;
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        pt[m][j][0] = fast_exp2(fmaf(pt[m][j][0], kLog2e, -l0));
+        pt[m][j][1] = fast_exp2(fmaf(pt[m][j][1], kLog2e, -l1));
+        pt[m][j][2] = fast_exp2(fmaf(pt[m][j][2], kLog2e, -l0));
+        pt[m][j][3] = fast_exp2(fmaf(pt[m][j][3], kLog2e, -l1));
+      }
+    }
+    warp_xb<DK, MT, BM>(dv_acc, pt, Dt, lane);  // dV += P^T dO
 
     // dS^T = P^T * (V dO^T - delta)
-    float dst[BT / 8][4];
-    warp_abt<DP>(dst, Vs + warp * 16 * LDS, Ds, lane);
+    float dst[MT][BM / 8][4];
+    warp_abt<DK, MT, BM>(dst, va, Dt, lane);
 #pragma unroll
-    for (int j = 0; j < BT / 8; ++j)
+    for (int j = 0; j < BM / 8; ++j) {
+      const float e0 = Et[8 * j + 2 * t], e1 = Et[8 * j + 2 * t + 1];
 #pragma unroll
-      for (int c = 0; c < 4; ++c)
-        dst[j][c] = pt[j][c] * (dst[j][c] - Es[8 * j + 2 * t + (c & 1)]);
-    warp_xb<DP>(dk_acc, dst, Qs, lane);  // dK += dS^T q'
+      for (int m = 0; m < MT; ++m) {
+        dst[m][j][0] = pt[m][j][0] * (dst[m][j][0] - e0);
+        dst[m][j][1] = pt[m][j][1] * (dst[m][j][1] - e1);
+        dst[m][j][2] = pt[m][j][2] * (dst[m][j][2] - e0);
+        dst[m][j][3] = pt[m][j][3] * (dst[m][j][3] - e1);
+      }
+    }
+    warp_xb<DK, MT, BM>(dk_acc, dst, Qt, lane);  // dK += dS^T q'
   }
-  store_rows<DP>(dk + base, dk_acc, k0 + warp * 16, S, C, h * D, D, 1.f, lane);
-  store_rows<DP>(dv + base, dv_acc, k0 + warp * 16, S, C, h * D, D, 1.f, lane);
+  cp_wait<0>();  // no copy outlives the block
+  const int r0 = k0 + warp * 16 * MT;
+  store_rows<DK, MT>(dk + base, dk_acc, r0, S, C, h * D, D, 1.f, lane);
+  store_rows<DK, MT>(dv + base, dv_acc, r0, S, C, h * D, D, 1.f, lane);
 }
 
-template <int DP>
-__global__ void __launch_bounds__(kWarps * 32)
-    flash_bwd_dq(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+// Pass 3: dQ of one (query tile, head, batch row).
+template <int DK>
+__global__ void __launch_bounds__(Tiles<DK>::kWarpsQ * 32, Tiles<DK>::kMinBlocksQ)
+    flash_bwd_dq(const bf16* __restrict__ qs, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
                  const float* __restrict__ lse, const float* __restrict__ delta,
-                 __nv_bfloat16* __restrict__ dq, int S, int H, int D, float scale) {
-  constexpr int LDS = lds<DP>();
+                 bf16* __restrict__ dq, int S, int H, int D, float scale) {
+  using T = Tiles<DK>;
+  constexpr int DP = T::kDP, LDS = T::kLds, MT = T::kMT, BN = T::kStream, ST = T::kStages;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BT][LDS] q'
-  __nv_bfloat16* Ds = Qs + BT * LDS;                                // [BT][LDS] dO
-  __nv_bfloat16* Ks = Ds + BT * LDS;                                // [2][BT][LDS]
-  __nv_bfloat16* Vs = Ks + 2 * BT * LDS;                            // [2][BT][LDS]
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [kResQ][LDS] q'
+  bf16* Ds = Qs + T::kResQ * LDS;                // [kResQ][LDS] dO
+  bf16* Ks = Ds + T::kResQ * LDS;                // [ST][BN][LDS]
+  bf16* Vs = Ks + ST * T::kTile;                 // [ST][BN][LDS]
 
-  const int q0 = blockIdx.x * BT, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * T::kResQ, h = blockIdx.y, b = blockIdx.z;
   const int C = H * D;
   const size_t base = (size_t)b * S * C;
   const size_t stat = ((size_t)b * H + h) * S;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
-  const int nk = cdiv(S, BT);
+  const int nk = cdiv(S, BN);
+  const int r0 = q0 + warp * 16 * MT;
 
-  load_tile<DP, BT>(dout + base, Ds, q0, S, C, h * D, D);
-  load_tile<DP, BT>(k + base, Ks, 0, S, C, h * D, D);
-  load_tile<DP, BT>(v + base, Vs, 0, S, C, h * D, D);
+  auto load_stage = [&](int j) {
+    const int st = j % ST;
+    load_tile<DP, BN>(k + base, Ks + st * T::kTile, j * BN, S, C, h * D, D);
+    load_tile<DP, BN>(v + base, Vs + st * T::kTile, j * BN, S, C, h * D, D);
+  };
+
+  load_tile<DP, T::kResQ>(qs + base, Qs, q0, S, C, h * D, D);
+  load_tile<DP, T::kResQ>(dout + base, Ds, q0, S, C, h * D, D);
   cp_commit();
-  load_tile_scaled<DP, BT>(q + base, Qs, q0, S, C, h * D, D, scale);
-  float row_lse[2], row_delta[2];  // rows g, g + 8 of the warp
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + warp * 16 + g + 8 * r;
-    row_lse[r] = row < S ? lse[stat + row] : INFINITY;
-    row_delta[r] = row < S ? delta[stat + row] : 0.f;
+  for (int j = 0; j < ST - 1; ++j) {
+    if (j < nk) load_stage(j);
+    cp_commit();
   }
-  float dq_acc[DP / 8][4];
+  float row_lse[MT][2], row_delta[MT][2];  // rows g, g + 8 of each of the warp's m-tiles
 #pragma unroll
-  for (int n = 0; n < DP / 8; ++n) dq_acc[n][0] = dq_acc[n][1] = dq_acc[n][2] = dq_acc[n][3] = 0.f;
-
-  for (int kt = 0; kt < nk; ++kt) {
-    const int buf = kt & 1;
-    if (kt + 1 < nk) {  // prefetch the next key tile into the other buffer
-      load_tile<DP, BT>(k + base, Ks + (buf ^ 1) * BT * LDS, (kt + 1) * BT, S, C, h * D, D);
-      load_tile<DP, BT>(v + base, Vs + (buf ^ 1) * BT * LDS, (kt + 1) * BT, S, C, h * D, D);
-      cp_commit();
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + 16 * m + g + 8 * r;
+      row_lse[m][r] = row < S ? lse[stat + row] * kLog2e : INFINITY;
+      row_delta[m][r] = row < S ? delta[stat + row] : 0.f;
     }
+  cp_wait<ST - 1>();  // q' and dO have landed
+  __syncthreads();
+  ARows<DK, MT> qa, da;  // the warp's queries, in registers for the whole loop
+  qa.load(Qs + warp * 16 * MT * LDS, lane);
+  da.load(Ds + warp * 16 * MT * LDS, lane);
+  float dq_acc[MT][DK / 8][4];
+  zero(dq_acc);
+
+  for (int j = 0; j < nk; ++j) {
+    cp_wait<ST - 2>();
     __syncthreads();
-    const __nv_bfloat16* Kt = Ks + buf * BT * LDS;
-    const __nv_bfloat16* Vt = Vs + buf * BT * LDS;
+    if (j + ST - 1 < nk) load_stage(j + ST - 1);
+    cp_commit();
+    const int st = j % ST;
+    const bf16* Kt = Ks + st * T::kTile;
+    const bf16* Vt = Vs + st * T::kTile;
 
     // P = exp(q' K^T - lse), zero past the sequence
-    float p[BT / 8][4];
-    warp_abt<DP>(p, Qs + warp * 16 * LDS, Kt, lane);
+    float p[MT][BN / 8][4];
+    warp_abt<DK, MT, BN>(p, qa, Kt, lane);
 #pragma unroll
-    for (int j = 0; j < BT / 8; ++j)
+    for (int jj = 0; jj < BN / 8; ++jj) {
+      const int key = j * BN + 8 * jj + 2 * t;
+      const bool ok0 = key < S, ok1 = key + 1 < S;
 #pragma unroll
-      for (int c = 0; c < 4; ++c)
-        p[j][c] = (kt * BT + 8 * j + 2 * t + (c & 1) < S) ? __expf(p[j][c] - row_lse[c >> 1])
-                                                           : 0.f;
+      for (int m = 0; m < MT; ++m) {
+        p[m][jj][0] = ok0 ? fast_exp2(fmaf(p[m][jj][0], kLog2e, -row_lse[m][0])) : 0.f;
+        p[m][jj][1] = ok1 ? fast_exp2(fmaf(p[m][jj][1], kLog2e, -row_lse[m][0])) : 0.f;
+        p[m][jj][2] = ok0 ? fast_exp2(fmaf(p[m][jj][2], kLog2e, -row_lse[m][1])) : 0.f;
+        p[m][jj][3] = ok1 ? fast_exp2(fmaf(p[m][jj][3], kLog2e, -row_lse[m][1])) : 0.f;
+      }
+    }
     // dS = P * (dO V^T - delta)
-    float ds[BT / 8][4];
-    warp_abt<DP>(ds, Ds + warp * 16 * LDS, Vt, lane);
+    float ds[MT][BN / 8][4];
+    warp_abt<DK, MT, BN>(ds, da, Vt, lane);
 #pragma unroll
-    for (int j = 0; j < BT / 8; ++j)
+    for (int jj = 0; jj < BN / 8; ++jj)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) ds[j][c] = p[j][c] * (ds[j][c] - row_delta[c >> 1]);
-    warp_xb<DP>(dq_acc, ds, Kt, lane);  // dQ += dS K
-    __syncthreads();  // the next prefetch overwrites this buffer
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          ds[m][jj][c] = p[m][jj][c] * (ds[m][jj][c] - row_delta[m][c >> 1]);
+    warp_xb<DK, MT, BN>(dq_acc, ds, Kt, lane);  // dQ += dS K
   }
-  store_rows<DP>(dq + base, dq_acc, q0 + warp * 16, S, C, h * D, D, scale, lane);
+  cp_wait<0>();
+  store_rows<DK, MT>(dq + base, dq_acc, r0, S, C, h * D, D, scale, lane);
 }
 
 // fp32 reference-precision kernels on the CUDA cores.
@@ -405,26 +645,44 @@ int launch_delta(const void* o, const void* dout, float* delta, int B, int S, in
   return (int)cudaGetLastError();
 }
 
-template <int DP>
-int launch_bf16(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-                const float* delta, void* dq, void* dk, void* dv, int B, int S, int H, int D,
-                float scale, cudaStream_t stream) {
-  using bf = __nv_bfloat16;
-  const dim3 grid(cdiv(S, BT), H, B);
-  const size_t smem_kv = (size_t)4 * BT * lds<DP>() * sizeof(bf) + 2 * BT * sizeof(float);
-  cudaError_t e = set_smem((const void*)flash_bwd_dkdv<DP>, smem_kv);
+template <int DK>
+int launch_bf16(const void* q, const void* k, const void* v, const void* o, const float* lse,
+                const void* dout, float* delta, void* qs, void* dq, void* dk, void* dv, int B,
+                int S, int H, int D, float scale, cudaStream_t stream) {
+  using T = Tiles<DK>;
+  DeviceInfo info;
+  cudaError_t e = device_info(&info);
   if (e != cudaSuccess) return (int)e;
-  flash_bwd_dkdv<DP><<<grid, kWarps * 32, smem_kv, stream>>>(
-      (const bf*)q, (const bf*)k, (const bf*)v, (const bf*)dout, lse, delta, (bf*)dk, (bf*)dv,
-      S, H, D, scale);
+  static bool attributes_set[kMaxDevices] = {};  // per instance and device, before its first launch
+  if (!attributes_set[info.dev]) {
+    auto set = [](const void* kern, size_t bytes) {
+      cudaError_t err =
+          cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                   cudaSharedmemCarveoutMaxShared);
+      return err;
+    };
+    e = set((const void*)flash_bwd_dkdv<DK>, T::kDkdvSmem);
+    if (e == cudaSuccess) e = set((const void*)flash_bwd_dq<DK>, T::kDqSmem);
+    if (e != cudaSuccess) return (int)e;
+    attributes_set[info.dev] = true;
+  }
+  const int cpr = H * D / 8;                   // 16-byte chunks a row
+  const int rows = cpr >= 2048 ? 1 : 2048 / cpr;  // at most 8 KB of partial sums a block
+  flash_bwd_prologue<<<cdiv(B * S, rows), 256, (size_t)rows * cpr * sizeof(float), stream>>>(
+      (const bf16*)q, (const bf16*)o, (const bf16*)dout, (bf16*)qs, delta, B, S, H, D, rows,
+      scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const size_t smem_q = (size_t)6 * BT * lds<DP>() * sizeof(bf);
-  e = set_smem((const void*)flash_bwd_dq<DP>, smem_q);
+  flash_bwd_dkdv<DK><<<dim3(cdiv(S, T::kResKV), H, B), T::kWarpsKV * 32, T::kDkdvSmem, stream>>>(
+      (const bf16*)qs, (const bf16*)k, (const bf16*)v, (const bf16*)dout, lse, delta, (bf16*)dk,
+      (bf16*)dv, S, H, D);
+  e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  flash_bwd_dq<DP><<<grid, kWarps * 32, smem_q, stream>>>(
-      (const bf*)q, (const bf*)k, (const bf*)v, (const bf*)dout, lse, delta, (bf*)dq, S, H, D,
-      scale);
+  flash_bwd_dq<DK><<<dim3(cdiv(S, T::kResQ), H, B), T::kWarpsQ * 32, T::kDqSmem, stream>>>(
+      (const bf16*)qs, (const bf16*)k, (const bf16*)v, (const bf16*)dout, lse, delta, (bf16*)dq,
+      S, H, D, scale);
   return (int)cudaGetLastError();
 }
 
@@ -432,18 +690,20 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* dout, c
 
 // q, k, v, o, dout, dq, dk, dv: (B, S, H*D) contiguous, 16-byte aligned;
 // D % 8 == 0, D <= 256.  lse: K1's (B, H, S) fp32 log-sum-exp; delta: an
-// fp32 (B, H, S) scratch buffer.
+// fp32 (B, H, S) scratch buffer; qs: a (B, S, H*D) scratch buffer for q'.
 SYNFMC_API int synfmc_flash_bwd_bf16(const void* q, const void* k, const void* v, const void* o,
-                                     const float* lse, const void* dout, float* delta, void* dq,
-                                     void* dk, void* dv, int B, int S, int H, int D, float scale,
-                                     void* stream) {
+                                     const float* lse, const void* dout, float* delta, void* qs,
+                                     void* dq, void* dk, void* dv, int B, int S, int H, int D,
+                                     float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  int err = launch_delta<__nv_bfloat16>(o, dout, delta, B, S, H, D, st);
-  if (err != 0) return err;
-  switch (cdiv(D, 16) * 16) {
-#define SYNFMC_CASE(DP) \
-  case DP:              \
-    return launch_bf16<DP>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, H, D, scale, st);
+  switch (cdiv(D, 8) * 8) {
+#define SYNFMC_CASE(DK) \
+  case DK:              \
+    return launch_bf16<DK>(q, k, v, o, lse, dout, delta, qs, dq, dk, dv, B, S, H, D, scale, st);
+    SYNFMC_CASE(8) SYNFMC_CASE(24) SYNFMC_CASE(40) SYNFMC_CASE(56) SYNFMC_CASE(72)
+    SYNFMC_CASE(88) SYNFMC_CASE(104) SYNFMC_CASE(120) SYNFMC_CASE(136) SYNFMC_CASE(152)
+    SYNFMC_CASE(168) SYNFMC_CASE(184) SYNFMC_CASE(200) SYNFMC_CASE(216) SYNFMC_CASE(232)
+    SYNFMC_CASE(248)
     SYNFMC_FOR_EACH_DP(SYNFMC_CASE)
 #undef SYNFMC_CASE
     default:

@@ -11,10 +11,14 @@ TPU's VMEM.  When a gradient is wanted it also writes each row's fp32
 log-sum-exp, so the backward recomputes P without a second softmax.
 
 The backward replaces _bwd_packed_single_kernel, _bwd_packed_kernel and the
-padded _bwd_kernel with one kernel set (csrc/flash_bwd.cu): a pass for
-delta = rowsum(dO*O), one block per key tile for dK/dV, one per query tile
-for dQ.  Nothing carries over between blocks, so there is no whole-sequence
-limit and no atomics.
+padded _bwd_kernel with one kernel set (csrc/flash_bwd.cu): a prologue pass
+for delta = rowsum(dO*O) that, in bf16, also writes q' = bf16(q*scale) once
+into a (B, S, H*D) scratch buffer (the wrapper allocates it beside the fp32
+(B, H, S) delta), then one block per key tile for dK/dV and one per query
+tile for dQ, each streaming the other side's tiles through a ring of
+asynchronous copies.  Every output is written by one block in a fixed order,
+so there is no whole-sequence limit, no atomics, and the gradients are the
+same bits on every run.
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises.
@@ -147,13 +151,17 @@ def flash_attention_bwd(q2, k2, v2, out, lse, do2, scale: float, heads: int):
     if lse is None or lse.dtype != torch.float32 or tuple(lse.shape) != (b, heads, s):
         raise ValueError("flash_attention_bwd: needs K1's fp32 (B, H, S) log-sum-exp")
     lse = lse.contiguous()
-    name = "synfmc_flash_bwd_bf16" if q2.dtype == torch.bfloat16 else "synfmc_flash_bwd_f32"
     P, I, F32 = _cuda.P, _cuda.I, _cuda.F32
-    fn = _cuda.entry("flash_bwd", name, [P] * 10 + [I, I, I, I, F32, P])
     dq, dk, dv = torch.empty_like(q2), torch.empty_like(k2), torch.empty_like(v2)
     delta = torch.empty_like(lse)
+    if q2.dtype == torch.bfloat16:  # the prologue writes q' = bf16(q * scale) to a scratch
+        fn = _cuda.entry("flash_bwd", "synfmc_flash_bwd_bf16", [P] * 11 + [I, I, I, I, F32, P])
+        scratch = (torch.empty_like(q2).data_ptr(),)
+    else:
+        fn = _cuda.entry("flash_bwd", "synfmc_flash_bwd_f32", [P] * 10 + [I, I, I, I, F32, P])
+        scratch = ()
     err = fn(q2.data_ptr(), k2.data_ptr(), v2.data_ptr(), out.data_ptr(),
-             lse.data_ptr(), do2.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+             lse.data_ptr(), do2.data_ptr(), delta.data_ptr(), *scratch, dq.data_ptr(),
              dk.data_ptr(), dv.data_ptr(), b, s, heads, d, float(scale), _stream(q2))
     _cuda.check(err, "flash_attention_bwd")
     flash_attention_bwd.launches += 1

@@ -48,6 +48,11 @@ def group_norm_plain(x, scale, bias, num_groups: int, eps: float = 1e-5,
     return out.reshape(x.shape).to(x.dtype)
 
 
+def group_norm_supported(s: int, c: int) -> bool:
+    """Slabs K3 takes: S rows of C channels a sample, C <= _MAX_C and S*C < 2**31."""
+    return c <= _MAX_C and s * c < 2 ** 31
+
+
 def _chunks(n: int, s: int) -> int:
     return max(1, min(s, -(-_TARGET_BLOCKS // n)))
 
@@ -100,7 +105,7 @@ def fused_group_norm_fwd(x, scale, bias, num_groups: int, eps: float = 1e-5,
     if not x.is_contiguous():
         raise ValueError("fused_group_norm: x must be contiguous (channel-last)")
     s = x.numel() // (n * c)
-    if c > _MAX_C or s * c >= 2 ** 31 or x.data_ptr() % 16:
+    if not group_norm_supported(s, c) or x.data_ptr() % 16:
         raise ValueError(f"fused_group_norm: unsupported slab (S={s}, C={c}) or alignment")
     name = "synfmc_group_norm_bf16" if x.dtype == torch.bfloat16 else "synfmc_group_norm_f32"
     P, I, F32 = _cuda.P, _cuda.I, _cuda.F32

@@ -2,8 +2,11 @@
 
 ``group_norm`` is the single entry point for every GroupNorm of the stack
 (UNet resnets, transformer and motion-module input norms, VAE blocks), with
-an optional fused activation.  Every call goes through the fused wrapper,
-which runs CUDA kernel K3 on a GPU tensor and the plain version on a CPU one.
+an optional fused activation.  A slab K3 takes goes through the fused
+wrapper, which runs CUDA kernel K3 on a GPU tensor and the plain version on a
+CPU one; a slab it does not take (C > 6144 or S*C >= 2**31) goes to the plain
+version on either device, as the JAX package's group_norm is XLA's.  The route
+depends on the shape alone: an x off 16 bytes is copied, not routed away.
 ``layer_norm`` stays plain PyTorch, as the JAX package left it to XLA.
 """
 
@@ -14,13 +17,23 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from synfmc_tpu_torch.ops.fused_groupnorm import fused_group_norm
+from synfmc_tpu_torch.ops.fused_groupnorm import (
+    fused_group_norm,
+    group_norm_plain,
+    group_norm_supported,
+)
 
 
 def group_norm(x, scale, bias, num_groups: int, eps: float = 1e-5,
                act: Optional[str] = None) -> torch.Tensor:
     """GroupNorm over the trailing channel axis of (N, ..., C)."""
-    return fused_group_norm(x.contiguous(), scale, bias, num_groups, eps=eps, act=act)
+    x = x.contiguous()
+    n, c = x.shape[0], x.shape[-1]
+    if not group_norm_supported(x.numel() // max(n * c, 1), c):
+        return group_norm_plain(x, scale, bias, num_groups, eps, act)
+    if x.data_ptr() % 16:
+        x = x.clone()
+    return fused_group_norm(x, scale, bias, num_groups, eps=eps, act=act)
 
 
 def layer_norm(x, scale, bias, eps: float = 1e-5) -> torch.Tensor:

@@ -26,15 +26,48 @@ from synfmc_tpu_torch.ops import _cuda
 from synfmc_tpu_torch.ops.flash_attention import _check_cuda, _stream
 
 MAX_FRAMES = 64
+# Opt-in shared memory per block of the H100 (cudaDevAttrMaxSharedMemoryPerBlockOptin),
+# a constant so that the CPU and the card route the same shapes the same way.
+SMEM_OPTIN = 232448
+
+
+def _seg_stride(seg: int) -> int:
+    """csrc/mma.cuh:seg_stride: an odd number of 16-byte chunks a bf16 row."""
+    return seg + (0 if (seg // 8) % 2 else 8)
+
+
+def _row_stride_f32(d: int) -> int:
+    """csrc/common.cuh:row_stride<float>: an odd number of words a row."""
+    return d if d % 2 else d + 1
+
+
+def unit_bytes(f: int, d: int, dtype) -> tuple[int, int]:
+    """Shared memory (bytes) of one head's unit in K2 and in K8 at F frames
+    and head dim D, as the launchers size it (csrc/temporal_fwd.cu:
+    launch_bf16, launch_f32; csrc/temporal_bwd.cu: launch_bf16, launch_f).
+    A larger head group never needs more than one head: the launchers fall
+    back to one head a unit."""
+    if dtype == torch.bfloat16:
+        kt = -(-f // 16)
+        seg = _seg_stride(d)
+        return 3 * f * seg * 2, (4 * f * seg + 2 * 16 * kt * (16 * kt + 8)) * 2
+    ld = _row_stride_f32(d)
+    return 3 * f * ld * 4, 4 * f * ld * 4 + 2 * f * (f + 1) * 4
 
 
 def temporal_supported(q2, heads: int) -> bool:
     """ops/temporal_attention.py:temporal_supported, plus the kernels' own
-    limits (F <= 64, head dim a multiple of 8)."""
+    limits: F <= 64, head dim a multiple of 8, a kernel for the dtype (bf16,
+    fp32), and one head's unit of both K2 and K8 within SMEM_OPTIN.  A pure
+    function of (N, F, H, D, dtype)."""
     if q2.dim() != 3:
         return False
     n, f, c = q2.shape
     if c % heads or f > MAX_FRAMES or (c // heads) % 8:
+        return False
+    if q2.dtype not in (torch.bfloat16, torch.float32):
+        return False
+    if max(unit_bytes(f, c // heads, q2.dtype)) > SMEM_OPTIN:
         return False
     return f >= 2 and n >= 8 and n % 8 == 0
 
@@ -72,7 +105,9 @@ def temporal_attention_bwd_plain(q2, k2, v2, do2, scale: float, heads: int):
             dv.reshape(shape).to(v2.dtype))
 
 
-def _check_shapes(name, q2, others, heads):
+def _check_shapes(name, q2, others, heads, unit: int):
+    """(N, F, D); on a non-CPU tensor, raises for a shape the kernel cannot
+    run (``unit`` picks K2's or K8's entry of :func:`unit_bytes`)."""
     n, f, c = q2.shape
     if any(t.shape != q2.shape for t in others):
         raise ValueError(f"{name}: operands must share one (N, F, H*D) shape")
@@ -81,12 +116,17 @@ def _check_shapes(name, q2, others, heads):
     d = c // heads
     if q2.device.type != "cpu" and (f > MAX_FRAMES or d % 8):
         raise ValueError(f"{name}: needs F <= {MAX_FRAMES} and D % 8 == 0, got F={f} D={d}")
+    if q2.device.type != "cpu" and q2.dtype in (torch.bfloat16, torch.float32):
+        need = unit_bytes(f, d, q2.dtype)[unit]
+        if need > SMEM_OPTIN:
+            raise ValueError(f"{name}: one head at F={f} D={d} {q2.dtype} needs {need} bytes "
+                             f"of shared memory, above the {SMEM_OPTIN} a block can have")
     return n, f, d
 
 
 def temporal_attention_fwd(q2, k2, v2, scale: float, heads: int) -> torch.Tensor:
     """K2: self-attention over F positions of each of N rows, (N, F, H*D)."""
-    n, f, d = _check_shapes("temporal_attention", q2, (k2, v2), heads)
+    n, f, d = _check_shapes("temporal_attention", q2, (k2, v2), heads, 0)
     if q2.device.type == "cpu":
         return temporal_attention_plain(q2, k2, v2, scale, heads)
     _check_cuda("temporal_attention", (q2, k2, v2), q2.dtype)
@@ -103,7 +143,7 @@ def temporal_attention_fwd(q2, k2, v2, scale: float, heads: int) -> torch.Tensor
 
 def temporal_attention_bwd(q2, k2, v2, do2, scale: float, heads: int):
     """K8: (dq, dk, dv) of the packed temporal attention."""
-    n, f, d = _check_shapes("temporal_attention_bwd", q2, (k2, v2, do2), heads)
+    n, f, d = _check_shapes("temporal_attention_bwd", q2, (k2, v2, do2), heads, 1)
     if q2.device.type == "cpu":
         return temporal_attention_bwd_plain(q2, k2, v2, do2, scale, heads)
     _check_cuda("temporal_attention_bwd", (q2, k2, v2, do2), q2.dtype)

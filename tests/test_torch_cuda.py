@@ -98,9 +98,18 @@ def assert_grads_close(got, want, dtype):
         assert (rel < F32_TOL) if dtype == torch.float32 else bwd_ok(err, rel), (err, rel)
 
 
+# The first five cases, then the edges of the tiles: K7's ragged tail (S =
+# 1617), one row past a 128-row tile (S = 129) at D = 40, 80 and 256, fewer
+# rows than one tile (S = 5) at D = 40, and one level-0 key.
+FLASH_BWD_CASES = [
+    (2, 300, 8, 40), (1, 77, 2, 80), (1, 130, 1, 256), (3, 5, 4, 8), (1, 384, 8, 80),
+    (1, 1617, 2, 40), (2, 129, 2, 40), (2, 129, 2, 80), (1, 129, 2, 256), (2, 5, 2, 40),
+    (2, 1536, 8, 40),
+]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("b,s,h,d", [(2, 300, 8, 40), (1, 77, 2, 80), (1, 130, 1, 256),
-                                     (3, 5, 4, 8), (1, 384, 8, 80)])
+@pytest.mark.parametrize("b,s,h,d", FLASH_BWD_CASES)
 def test_flash_bwd_kernel(gen, dtype, b, s, h, d):
     from synfmc_tpu_torch.ops.flash_attention import (
         flash_attention_bwd,
@@ -117,6 +126,20 @@ def test_flash_bwd_kernel(gen, dtype, b, s, h, d):
     assert flash_attention_bwd.launches == before + 1
     want = flash_attention_bwd_plain(q.float(), k.float(), v.float(), do.float(), d ** -0.5, h)
     assert_grads_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("b,s,h,d", [(2, 1536, 8, 40), (1, 1617, 2, 40), (2, 129, 2, 80)])
+def test_flash_bwd_deterministic(gen, b, s, h, d):
+    """Two calls on the same inputs give the same bits: no output is summed
+    across blocks in an order that changes from run to run."""
+    from synfmc_tpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_fwd
+
+    q, k, v, do = (_rand(gen, b, s, h * d, dtype=torch.bfloat16) for _ in range(4))
+    o, lse = flash_attention_fwd(q, k, v, d ** -0.5, h, with_lse=True)
+    first = flash_attention_bwd(q, k, v, o, lse, do, d ** -0.5, h)
+    second = flash_attention_bwd(q, k, v, o, lse, do, d ** -0.5, h)
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
 
 
 # The first four cases, then the tensor-core kernel's edges: the m16n8k8
@@ -207,3 +230,51 @@ def test_unloadable_kernel_raises(gen, monkeypatch, kernel):
                 "temporal_bwd": (temporal_attention_bwd, (x, x, x, x, 0.5, 4))}[kernel]
     with pytest.raises(RuntimeError, match=f"no {kernel} library"):
         fn(*args)
+
+
+def test_smem_optin_matches_device(gen):
+    """The temporal gate's opt-in constant is this card's."""
+    from synfmc_tpu_torch.ops.temporal_attention import SMEM_OPTIN
+
+    assert torch.cuda.get_device_properties(0).shared_memory_per_block_optin == SMEM_OPTIN
+
+
+@pytest.mark.parametrize("n,f,h,d", [(8, 48, 1, 400), (8, 64, 1, 256)])
+def test_attention_declined_temporal_shape_runs_plain(gen, n, f, h, d):
+    """fp32 shapes whose K8 unit passes the opt-in take the plain path, with
+    gradients, and match plain_attention (fp32, TF32 off)."""
+    from synfmc_tpu_torch.ops.attention import dot_product_attention, plain_attention, route
+    from synfmc_tpu_torch.ops.temporal_attention import temporal_attention
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    inputs = [_rand(gen, n, f, h, d, dtype=torch.float32) for _ in range(3)]
+    assert route(inputs[0], inputs[1]) == "plain"
+    before = temporal_attention.launches
+    leaves = [x.clone().requires_grad_() for x in inputs]
+    out = dot_product_attention(*leaves)
+    cot = torch.randn(out.shape, generator=gen, device="cuda")
+    got = (out, *torch.autograd.grad(out, leaves, cot))
+    ref = [x.clone().requires_grad_() for x in inputs]
+    want_out = plain_attention(*ref, d ** -0.5)
+    want = (want_out, *torch.autograd.grad(want_out, ref, cot))
+    assert temporal_attention.launches == before
+    for g, w in zip(got, want):
+        assert kernel_error(g, w)[1] < F32_TOL
+
+
+def test_group_norm_wide_slab_runs_plain(gen):
+    """norms.group_norm sends C = 8192 (above K3's 6144) to the plain version
+    and a slab off 16 bytes to K3 on a copy; both match group_norm_plain."""
+    from synfmc_tpu_torch.ops import norms
+    from synfmc_tpu_torch.ops.fused_groupnorm import fused_group_norm, group_norm_plain
+
+    for c, offset in ((8192, 0), (320, 1)):
+        buf = _rand(gen, 2 * 96 * c + offset, dtype=torch.bfloat16)
+        x = buf[offset:].view(2, 96, c)
+        w = (1 + 0.1 * torch.randn(c, generator=gen, device="cuda")).to(torch.bfloat16)
+        b = (0.1 * torch.randn(c, generator=gen, device="cuda")).to(torch.bfloat16)
+        before = fused_group_norm.launches
+        got = norms.group_norm(x, w, b, 32, 1e-6, "silu")
+        assert fused_group_norm.launches == before + (c <= 6144)
+        want = group_norm_plain(x.float(), w.float(), b.float(), 32, 1e-6, "silu")
+        assert_close(got, want, torch.bfloat16)
