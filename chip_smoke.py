@@ -50,9 +50,11 @@ one extra train step: device time by kernel family and the device's idle
 share.  The last two lines of stdout are the kernels' JSON summary and
 {"ok": true, "device": {...}}.
 
-``--passes [ROOT]`` only times the flash backward's passes at the train
-step's two spatial keys, with the port package of the tree at ROOT (default:
-this one), so that two trees compare in one run.
+``--passes [ROOT]`` only times K1 by kernel at its three keys (32x1536x320,
+16x1536x320, 32x384x640, 8 heads) beside SDPA's forward kernels, and the
+flash backward's passes at the train step's two spatial keys, with the port
+package of the tree at ROOT (default: this one), so that two trees compare
+in one run.
 """
 
 from __future__ import annotations
@@ -90,6 +92,11 @@ RATES = {
     "PCIe": dict(bf16=756e12, f32=51e12, bytes=2.0e12),
     "NVL": dict(bf16=835e12, f32=60e12, bytes=3.9e12),
 }
+# Exponentials: 16 ex2 a clock per SM (CUDA C++ Programming Guide, throughput
+# table, compute capability 9.0) at the 1.83 GHz that the SXM data sheet's
+# 989 TFLOP/s implies (132 SMs x 4096 bf16 FLOP a clock); the rate is
+# SMs x 16 x 1.83e9 a second.
+EX2_PER_CLOCK, BOUND_CLOCK_HZ = 16, 1.83e9
 
 # torch.cuda._sleep spins for a count of SM cycles; at or above the H100's
 # top clock (1.98 GHz) the sleep lasts at least the time asked for.
@@ -127,11 +134,21 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def rates_for(name: str) -> tuple[str, dict]:
-    for form in ("PCIe", "NVL"):
-        if form in name:
-            return form, RATES[form]
-    return "SXM", RATES["SXM"]
+def rates_for(name: str, sms: int) -> tuple[str, dict]:
+    """The data-sheet rates of the card's form, with the exponential rate of
+    its ``sms`` SMs under ``exp``."""
+    form = next((f for f in ("PCIe", "NVL") if f in name), "SXM")
+    return form, dict(RATES[form], exp=sms * EX2_PER_CLOCK * BOUND_CLOCK_HZ)
+
+
+def bound(flops, nbytes, exps, rate, rates) -> tuple[float, str]:
+    """The least time (ms) the card could take and what sets it: the largest
+    of operations at the peak rate of their type, bytes at the memory rate,
+    and exponentials at the special-function units' rate."""
+    terms = {"operations": flops / rates[rate], "bytes": nbytes / rates["bytes"],
+             "exponentials": exps / rates["exp"]}
+    by = max(terms, key=terms.get)
+    return terms[by] * 1e3, by
 
 
 def time_ms(fn, arg_sets, reps: int = 10, warmup: int = 3, queued: bool = False) -> float:
@@ -296,7 +313,8 @@ def record_shapes(pipe, chs):
 
 
 def kernel_case(kind, key, dtype, gen):
-    """(kernel fn, plain fn, library fn, input sets, flops, bytes, flop rate key)."""
+    """(kernel fn, plain fn, library fn, input sets, flops, bytes, flop rate
+    key, exponentials)."""
     from synfmc_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
     from synfmc_tpu_torch.ops.fused_groupnorm import fused_group_norm, group_norm_plain
     from synfmc_tpu_torch.ops.temporal_attention import (
@@ -317,7 +335,8 @@ def kernel_case(kind, key, dtype, gen):
                 lambda q, k, v: plain(q, k, v, scale, heads),
                 lambda q, k, v: F.scaled_dot_product_attention(view(q), view(k), view(v),
                                                                scale=scale),
-                sets, 4.0 * b * heads * s * s * d, 4.0 * b * s * c * esize, "bf16")
+                sets, 4.0 * b * heads * s * s * d, 4.0 * b * s * c * esize, "bf16",
+                float(b * heads * s * s))  # one exponential a logit
     _, n, s, c, groups, eps, act = key
     # unit-scale activations and near-identity affine, as in a trained model:
     # outputs stay O(1), where bf16's half-ulp is below 0.016
@@ -336,15 +355,15 @@ def kernel_case(kind, key, dtype, gen):
     ops = (9 if act == "silu" else 5) * n * s * c
     return (lambda x, w, b: fused_group_norm(x, w, b, groups, eps, act),
             lambda x, w, b: group_norm_plain(x, w, b, groups, eps, act),
-            library, sets, float(ops), 2.0 * n * s * c * esize, "f32")
+            library, sets, float(ops), 2.0 * n * s * c * esize, "f32",
+            float(n * s * c if act == "silu" else 0))  # SiLU's sigmoid
 
 
-def _row(kind, key, count, err, rel, kern, plain, lib, sets, flops, nbytes, rate, rates):
-    t_ops, t_bytes = flops / rates[rate] * 1e3, nbytes / rates["bytes"] * 1e3
+def _row(kind, key, count, err, rel, kern, plain, lib, sets, flops, nbytes, rate, exps, rates):
+    bound_ms, bound_by = bound(flops, nbytes, exps, rate, rates)
     row = dict(key=key, per_forward=count, err=err, rel=rel, ms=time_ms(kern, sets),
                plain_ms=time_ms(plain, sets, reps=5, warmup=1),
-               library_ms=time_ms(lib, sets), bound_ms=max(t_ops, t_bytes),
-               bound_by="operations" if t_ops > t_bytes else "bytes",
+               library_ms=time_ms(lib, sets), bound_ms=bound_ms, bound_by=bound_by,
                device_ms=time_ms(kern, sets, queued=True),
                library_device_ms=time_ms(lib, sets, queued=True))
     log(f"  {kind:12s} {str(key[:-2] if 'group_norm' not in kind else key):60s} "
@@ -361,7 +380,8 @@ def check_kernels(seen, rates, fp32=True):
     results = {k: [] for k in seen}
     for kind, keys in seen.items():
         for key, count in sorted(keys.items(), key=lambda kv: str(kv[0])):
-            kern, plain, lib, sets, flops, nbytes, rate = kernel_case(kind, key, torch.bfloat16, gen)
+            kern, plain, lib, sets, flops, nbytes, rate, exps = kernel_case(kind, key,
+                                                                           torch.bfloat16, gen)
             want = plain(*(x.float() for x in sets[0]))
             err, rel = kernel_error(kern(*sets[0]), want)
             torch.cuda.synchronize()
@@ -369,7 +389,7 @@ def check_kernels(seen, rates, fp32=True):
                 raise AssertionError(f"{kind} {key}: bf16 max abs err {err} (limit {BF16_TOL}), "
                                      f"{rel} of the largest output (limit {BF16_REL_TOL})")
             results[kind].append(_row(kind, key, count, err, rel, kern, plain, lib, sets, flops,
-                                      nbytes, rate, rates))
+                                      nbytes, rate, exps, rates))
     if not fp32:
         return results
     # one fp32 case per kernel, TF32 off everywhere
@@ -393,7 +413,8 @@ def check_kernels(seen, rates, fp32=True):
 
 def bwd_case(kind, key, dtype, gen):
     """A backward kernel at ``key`` = (stage, rows, seq, channels, heads, scale):
-    (kernel fn, plain fn, library fn, input sets, library sets, flops, bytes).
+    (kernel fn, plain fn, library fn, input sets, library sets, flops, bytes,
+    exponentials).
     The flash backward takes K1's output and log-sum-exp of the same inputs;
     the library is SDPA's backward through a graph built once per set."""
     from synfmc_tpu_torch.ops.flash_attention import (
@@ -428,9 +449,10 @@ def bwd_case(kind, key, dtype, gen):
         kern = lambda q, k, v, do: temporal_attention_bwd(q, k, v, do, scale, heads)
         plain = lambda q, k, v, do: temporal_attention_bwd_plain(q, k, v, do, scale, heads)
     lib = lambda out, ins, g: torch.autograd.grad(out, ins, g, retain_graph=True)
-    # 5 products of 2*S*S*D per (row, head); q, k, v, dO read, dq, dk, dv written
+    # 5 products of 2*S*S*D per (row, head); q, k, v, dO read, dq, dk, dv
+    # written; P recomputed once, one exponential a logit
     return (kern, plain, lib, sets, lib_sets, 10.0 * b * heads * s * s * d,
-            7.0 * b * s * c * esize)
+            7.0 * b * s * c * esize, float(b * heads * s * s))
 
 
 def _bwd_errors(kind, key, got, want, ok, limit):
@@ -449,17 +471,16 @@ def check_bwd(seen, rates):
     results = {"flash_bwd": [], "temporal_bwd": []}
     for kind in results:
         for key, count in sorted(seen[kind].items(), key=lambda kv: str(kv[0])):
-            kern, plain, lib, sets, lib_sets, flops, nbytes = bwd_case(kind, key, torch.bfloat16,
-                                                                      gen)
+            kern, plain, lib, sets, lib_sets, flops, nbytes, exps = bwd_case(
+                kind, key, torch.bfloat16, gen)
             want = plain(*(x.float() for x in sets[0]))
             err, rel = _bwd_errors(kind, key, kern(*sets[0]), want, bwd_ok,
                                    (BWD_TOL, BWD_REL_TOL))
             torch.cuda.synchronize()
-            t_ops, t_bytes = flops / rates["bf16"] * 1e3, nbytes / rates["bytes"] * 1e3
+            bound_ms, bound_by = bound(flops, nbytes, exps, "bf16", rates)
             row = dict(key=key, per_forward=count, err=err, rel=rel, ms=time_ms(kern, sets),
                        plain_ms=time_ms(plain, sets, reps=3, warmup=1),
-                       library_ms=time_ms(lib, lib_sets), bound_ms=max(t_ops, t_bytes),
-                       bound_by="operations" if t_ops > t_bytes else "bytes",
+                       library_ms=time_ms(lib, lib_sets), bound_ms=bound_ms, bound_by=bound_by,
                        device_ms=time_ms(kern, sets, queued=True),
                        library_device_ms=time_ms(lib, lib_sets, queued=True))
             results[kind].append(row)
@@ -480,13 +501,52 @@ def check_bwd(seen, rates):
     return results
 
 
-def flash_bwd_passes(b, s, c, heads, reps=10):
-    """Device ms of each pass of the flash backward (kernel names flash_bwd_*)
-    per call at (b, s, c, heads) in bf16, from a torch.profiler trace of
-    ``reps`` calls queued back to back."""
-    import re
-
+def trace_kernels(fn, match, reps=10) -> Counter:
+    """Device ms per call of each CUDA kernel whose name contains ``match``
+    (every kernel when it is empty), from a torch.profiler trace of ``reps``
+    calls of ``fn`` queued back to back after 3 untraced ones."""
     from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = Counter()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and match in e.name:
+            kernels[e.name[:90]] += (e.time_range.end - e.time_range.start) / 1e3 / reps
+    return kernels
+
+
+def flash_fwd_kernels(b, s, c, heads):
+    """K1 at (b, s, c, heads) in bf16 with its log-sum-exp, as the train step
+    calls it: device ms per call by kernel name (flash_fwd_*), and the kernels
+    SDPA's forward launches on the same inputs."""
+    from synfmc_tpu_torch.ops.flash_attention import flash_attention_fwd
+
+    d = c // heads
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (torch.randn(b, s, c, generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    view = lambda x: x.view(b, s, heads, d).transpose(1, 2)
+    ours = trace_kernels(lambda: flash_attention_fwd(q, k, v, d ** -0.5, heads, with_lse=True),
+                         "flash_fwd")
+    if not ours:
+        raise AssertionError("flash_fwd_kernels: the trace holds no flash_fwd kernel")
+    lib = trace_kernels(lambda: F.scaled_dot_product_attention(view(q), view(k), view(v),
+                                                               scale=d ** -0.5), "")
+    return {"shape": [b, s, c, heads], "k1_kernels_device_ms": dict(ours),
+            "k1_device_ms": sum(ours.values()),
+            "library_kernels_device_ms": dict(lib.most_common(6))}
+
+
+def flash_bwd_passes(b, s, c, heads):
+    """Device ms of each pass of the flash backward (kernel names flash_bwd_*)
+    per call at (b, s, c, heads) in bf16, from a torch.profiler trace."""
+    import re
 
     from synfmc_tpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_fwd
 
@@ -495,47 +555,28 @@ def flash_bwd_passes(b, s, c, heads, reps=10):
                    for _ in range(4))
     scale = (c // heads) ** -0.5
     o, lse = flash_attention_fwd(q, k, v, scale, heads, with_lse=True)
-    for _ in range(3):
-        flash_attention_bwd(q, k, v, o, lse, do, scale, heads)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            flash_attention_bwd(q, k, v, o, lse, do, scale, heads)
-        torch.cuda.synchronize()
     passes = Counter()
-    for e in prof.events():
-        found = re.search(r"flash_bwd_(?:prologue|delta|dkdv|dq)", e.name)
-        if e.device_type == torch.autograd.DeviceType.CUDA and found:
-            passes[found.group(0)] += (
-                e.time_range.end - e.time_range.start) / 1e3 / reps
+    for name, ms in trace_kernels(lambda: flash_attention_bwd(q, k, v, o, lse, do, scale, heads),
+                                  "flash_bwd").items():
+        found = re.search(r"flash_bwd_(?:prologue|delta|dkdv|dq)", name)
+        if found:
+            passes[found.group(0)] += ms
     if not passes:
         raise AssertionError("flash_bwd_passes: the trace holds no flash_bwd kernel")
     return {"shape": [b, s, c, heads], "passes_device_ms": dict(passes),
             "total_device_ms": sum(passes.values())}
 
 
-def library_bwd_kernels(b, s, c, heads, reps=10):
+def library_bwd_kernels(b, s, c, heads):
     """SDPA's backward at (b, s, c, heads) in bf16: device ms per call of each
-    kernel it launches, from a torch.profiler trace of ``reps`` calls."""
-    from torch.profiler import ProfilerActivity, profile
-
+    kernel it launches, from a torch.profiler trace."""
     d = c // heads
     gen = torch.Generator(device="cuda").manual_seed(5)
     ins = [torch.randn(b, heads, s, d, generator=gen, device="cuda").to(torch.bfloat16)
            .requires_grad_() for _ in range(3)]
     out = F.scaled_dot_product_attention(*ins, scale=d ** -0.5)
     g = torch.randn_like(out)
-    for _ in range(3):
-        torch.autograd.grad(out, ins, g, retain_graph=True)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            torch.autograd.grad(out, ins, g, retain_graph=True)
-        torch.cuda.synchronize()
-    kernels = Counter()
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            kernels[e.name[:90]] += (e.time_range.end - e.time_range.start) / 1e3 / reps
+    kernels = trace_kernels(lambda: torch.autograd.grad(out, ins, g, retain_graph=True), "")
     return {"shape": [b, s, c, heads], "library_kernels_device_ms": dict(kernels.most_common(6))}
 
 
@@ -989,7 +1030,9 @@ def summarise(results, launches):
             "replaces": replaces, "launches": 0 if standin else launches[kind],
             "max_abs_err": max(r["err"] for r in rows), "max_rel_err": max(r["rel"] for r in rows),
             "ms": hot["ms"], "plain_ms": hot["plain_ms"], "bound_ms": hot["bound_ms"],
-            "bound_by": hot["bound_by"], "library_ms": hot["library_ms"],
+            # exponentials are operations of the special-function units
+            "bound_by": "bytes" if hot["bound_by"] == "bytes" else "operations",
+            "bound_term": hot["bound_by"], "library_ms": hot["library_ms"],
             "device_ms": hot["device_ms"], "library_device_ms": hot["library_device_ms"],
             "shape": list(hot["key"][1:]),
         })
@@ -997,9 +1040,11 @@ def summarise(results, launches):
 
 
 def passes_only(root: str) -> int:
-    """``--passes [ROOT]``: the flash backward's per-pass device times at the
-    train step's two spatial keys, with the port package of the tree at ROOT
-    (default: this one), for comparing two trees in one call."""
+    """``--passes [ROOT]``: K1's device time by kernel at its three keys (level
+    0 serving and train, level 1 serving) beside SDPA's forward kernels, and
+    the flash backward's per-pass device times at the train step's two
+    spatial keys, with the port package of the tree at ROOT (default: this
+    one), for comparing two trees in one call."""
     sys.path.insert(0, os.path.abspath(root))
     from synfmc_tpu_torch.ops import _cuda
 
@@ -1007,6 +1052,8 @@ def passes_only(root: str) -> int:
                          capture_output=True, text=True, timeout=60).stdout.strip()
     log(f"[passes] {_cuda.__file__}; {smi}")
     _cuda.build_all(("flash_fwd", "flash_bwd"))
+    for b, s, c, heads in ((32, 1536, 320, 8), (16, 1536, 320, 8), (32, 384, 640, 8)):
+        log(f"[passes] {json.dumps(flash_fwd_kernels(b, s, c, heads))}")
     for b, s, c, heads in ((16, 1536, 320, 8), (16, 384, 640, 8)):
         log(f"[passes] {json.dumps(flash_bwd_passes(b, s, c, heads))}")
         log(f"[passes] {json.dumps(library_bwd_kernels(b, s, c, heads))}")
@@ -1029,7 +1076,7 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
-    form, rates = rates_for(name)
+    form, rates = rates_for(name, torch.cuda.get_device_properties(0).multi_processor_count)
     log(f"[device] {name} (rates of the H100 {form}: {rates}); torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
     log(smi[0] if smi else "nvidia-smi: no output")

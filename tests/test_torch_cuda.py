@@ -36,8 +36,19 @@ def assert_close(got, want, dtype):
         assert bf16_ok(err, rel), (err, rel)
 
 
+# The first four cases, then the flagship widths, K4's ragged tail (S = 1617),
+# one 128-row tile plus one row (S = 129), fewer rows than one tile (S = 5),
+# the largest D of the wgmma instance (128) and the first of the mma.sync
+# instance (136).
+FLASH_CASES = [
+    (2, 300, 8, 40), (1, 77, 2, 80), (1, 64, 1, 256), (3, 5, 4, 8),
+    (2, 1536, 8, 40), (2, 384, 8, 80), (2, 1617, 8, 40), (1, 129, 8, 40), (1, 5, 8, 40),
+    (1, 300, 2, 128), (1, 300, 2, 136),
+]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("b,s,h,d", [(2, 300, 8, 40), (1, 77, 2, 80), (1, 64, 1, 256), (3, 5, 4, 8)])
+@pytest.mark.parametrize("b,s,h,d", FLASH_CASES)
 def test_flash_kernel(gen, dtype, b, s, h, d):
     from synfmc_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
 
@@ -96,6 +107,65 @@ def assert_grads_close(got, want, dtype):
     for g, w in zip(got, want):
         err, rel = kernel_error(g, w)
         assert (rel < F32_TOL) if dtype == torch.float32 else bwd_ok(err, rel), (err, rel)
+
+
+@pytest.mark.parametrize("b,s,h,d", [(2, 1536, 8, 40), (2, 384, 8, 80), (1, 129, 8, 40),
+                                     (1, 300, 2, 128), (1, 300, 2, 136)])
+def test_flash_lse_matches_logsumexp(gen, b, s, h, d):
+    """K1's fp32 log-sum-exp (read by the backward) equals torch.logsumexp of
+    the plain fp32 logits of the bf16-scaled q, within 1e-2."""
+    from synfmc_tpu_torch.ops.flash_attention import flash_attention_fwd
+
+    q, k, v = (_rand(gen, b, s, h * d, dtype=torch.bfloat16) for _ in range(3))
+    _, lse = flash_attention_fwd(q, k, v, d ** -0.5, h, with_lse=True)
+    split = lambda x: x.float().view(b, s, h, d).transpose(1, 2)
+    logits = split((q.float() * d ** -0.5).to(torch.bfloat16)) @ split(k).transpose(-1, -2)
+    assert (lse - torch.logsumexp(logits, dim=-1)).abs().max().item() < 1e-2
+
+
+@pytest.mark.parametrize("b,s,h,d", [(2, 1536, 8, 40), (1, 1617, 2, 40), (2, 384, 8, 80),
+                                     (1, 300, 2, 136)])
+def test_flash_fwd_deterministic(gen, b, s, h, d):
+    """Two calls give the same bits, output and log-sum-exp."""
+    from synfmc_tpu_torch.ops.flash_attention import flash_attention_fwd
+
+    q, k, v = (_rand(gen, b, s, h * d, dtype=torch.bfloat16) for _ in range(3))
+    first = flash_attention_fwd(q, k, v, d ** -0.5, h, with_lse=True)
+    second = flash_attention_fwd(q, k, v, d ** -0.5, h, with_lse=True)
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.parametrize("d,kernel", [(40, "flash_fwd_wgmma"), (80, "flash_fwd_wgmma"),
+                                      (128, "flash_fwd_wgmma"), (136, "flash_fwd_mma")])
+def test_flash_fwd_runs_its_instance(gen, d, kernel):
+    """The bf16 forward launches the instance fwd_instance names, and only
+    that one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from synfmc_tpu_torch.ops.flash_attention import flash_attention, fwd_instance
+
+    q = _rand(gen, 1, 200, 2 * d, dtype=torch.bfloat16)
+    flash_attention(q, q, q, d ** -0.5, 2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        flash_attention(q, q, q, d ** -0.5, 2)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if "flash_fwd" in e.name]
+    assert names and all(kernel in n for n in names), names
+    assert kernel == {"wgmma": "flash_fwd_wgmma", "mma_sync": "flash_fwd_mma"}[fwd_instance(d)[0]]
+
+
+def test_flash_fwd_raises_above_the_optin(gen, monkeypatch):
+    """A block above the opt-in raises before any launch, with the bytes."""
+    import synfmc_tpu_torch.ops.flash_attention as fa
+
+    monkeypatch.setattr(fa, "SMEM_OPTIN", 100_000)
+    q = _rand(gen, 1, 64, 2 * 80, dtype=torch.bfloat16)
+    before = fa.flash_attention.launches
+    with pytest.raises(ValueError, match="208992 bytes"):
+        fa.flash_attention(q, q, q, 80 ** -0.5, 2)
+    assert fa.flash_attention.launches == before
 
 
 # The first five cases, then the edges of the tiles: K7's ragged tail (S =
@@ -233,7 +303,7 @@ def test_unloadable_kernel_raises(gen, monkeypatch, kernel):
 
 
 def test_smem_optin_matches_device(gen):
-    """The temporal gate's opt-in constant is this card's."""
+    """The gates' opt-in constant is this card's."""
     from synfmc_tpu_torch.ops.temporal_attention import SMEM_OPTIN
 
     assert torch.cuda.get_device_properties(0).shared_memory_per_block_optin == SMEM_OPTIN
