@@ -58,7 +58,7 @@
 //     ex2.approx of one FFMA, s*log2e - m*log2e; row maxima and sums use four
 //     partial chains.
 //
-// flash_fwd_mma, 128 < D <= 256: PR 1's layout on mma.sync m16n8k16, one
+// flash_fwd_mma, 128 < D <= 256: a FlashAttention-2 layout on mma.sync m16n8k16, one
 //   block per 64 query rows (4 warps of 16), K/V tiles of 64 keys
 //   double-buffered with cp.async, the head dim padded to a multiple of 16.
 //   At these widths wgmma's 64-row accumulators for S, O and P would not
