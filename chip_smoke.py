@@ -61,6 +61,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -93,10 +94,9 @@ RATES = {
     "NVL": dict(bf16=835e12, f32=60e12, bytes=3.9e12),
 }
 # Exponentials: 16 ex2 a clock per SM (CUDA C++ Programming Guide, throughput
-# table, compute capability 9.0) at the 1.83 GHz that the SXM data sheet's
-# 989 TFLOP/s implies (132 SMs x 4096 bf16 FLOP a clock); the rate is
-# SMs x 16 x 1.83e9 a second.
-EX2_PER_CLOCK, BOUND_CLOCK_HZ = 16, 1.83e9
+# table, compute capability 9.0) at the card's top SM clock (nvidia-smi's
+# clocks.max.sm: 1980 MHz on the H100 SXM); the rate is SMs x 16 x that clock.
+EX2_PER_CLOCK = 16
 
 # torch.cuda._sleep spins for a count of SM cycles; at or above the H100's
 # top clock (1.98 GHz) the sleep lasts at least the time asked for.
@@ -134,11 +134,45 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def smi(query: str) -> list[str]:
+    """``nvidia-smi --query-gpu=<query> --format=csv,noheader``, a line a card."""
+    return subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
+
+
 def rates_for(name: str, sms: int) -> tuple[str, dict]:
     """The data-sheet rates of the card's form, with the exponential rate of
-    its ``sms`` SMs under ``exp``."""
+    its ``sms`` SMs at its top SM clock under ``exp``."""
     form = next((f for f in ("PCIe", "NVL") if f in name), "SXM")
-    return form, dict(RATES[form], exp=sms * EX2_PER_CLOCK * BOUND_CLOCK_HZ)
+    mhz = float(smi("clocks.max.sm")[0].split()[0])
+    return form, dict(RATES[form], exp=sms * EX2_PER_CLOCK * mhz * 1e6)
+
+
+def kernel_name(mangled: str) -> str:
+    """'flash_fwd_wgmma<48, 40>' from an Itanium-mangled kernel symbol: its
+    last name with its integer template arguments."""
+    i, name = (3 if mangled.startswith("_ZN") else 2), mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        name, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
+    args = re.match(r"I((?:Li-?\d+E)+)E", mangled[i:])
+    return name + (f"<{', '.join(re.findall(r'Li(-?\d+)E', args.group(1)))}>" if args else "")
+
+
+def ptxas_resources(text: str) -> dict:
+    """{kernel: (registers, spill store bytes, spill load bytes)} from
+    ``ptxas -v`` output."""
+    res, cur = {}, None
+    for ln in text.splitlines():
+        if m := re.search(r"Function properties for (\S+)", ln):
+            cur = kernel_name(m.group(1))
+        elif cur and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)):
+            res[cur] = (0, int(m.group(1)), int(m.group(2)))
+        elif cur in res and (m := re.search(r"Used (\d+) registers", ln)):
+            res[cur] = (int(m.group(1)),) + res[cur][1:]
+    return res
 
 
 def bound(flops, nbytes, exps, rate, rates) -> tuple[float, str]:
@@ -546,7 +580,6 @@ def flash_fwd_kernels(b, s, c, heads):
 def flash_bwd_passes(b, s, c, heads):
     """Device ms of each pass of the flash backward (kernel names flash_bwd_*)
     per call at (b, s, c, heads) in bf16, from a torch.profiler trace."""
-    import re
 
     from synfmc_tpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_fwd
 
@@ -1048,9 +1081,7 @@ def passes_only(root: str) -> int:
     sys.path.insert(0, os.path.abspath(root))
     from synfmc_tpu_torch.ops import _cuda
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60).stdout.strip()
-    log(f"[passes] {_cuda.__file__}; {smi}")
+    log(f"[passes] {_cuda.__file__}; {' / '.join(smi('name,power.limit'))}")
     _cuda.build_all(("flash_fwd", "flash_bwd"))
     for b, s, c, heads in ((32, 1536, 320, 8), (16, 1536, 320, 8), (32, 384, 640, 8)):
         log(f"[passes] {json.dumps(flash_fwd_kernels(b, s, c, heads))}")
@@ -1074,18 +1105,20 @@ def main() -> int:
 
     profile = "--profile" in args
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
+    card = smi("name,power.limit")
     form, rates = rates_for(name, torch.cuda.get_device_properties(0).multi_processor_count)
     log(f"[device] {name} (rates of the H100 {form}: {rates}); torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
-    log(smi[0] if smi else "nvidia-smi: no output")
+    log(card[0] if card else "nvidia-smi: no output")
 
     t0 = time.perf_counter()
     logs = _cuda.build_all()
     for src, text in logs.items():
-        info = [ln.strip() for ln in text.splitlines() if "registers" in ln or "spill" in ln]
-        log(f"[build] {src}: " + " | ".join(info[:6]))
+        res = ptxas_resources(text)
+        regs = sorted(r for r, _, _ in res.values()) or [0]
+        spills = [f"{k} {st}/{ld} B" for k, (_, st, ld) in res.items() if st or ld]
+        log(f"[build] {src}: {len(res)} kernels, {regs[0]}-{regs[-1]} registers; "
+            f"spill stores/loads: {', '.join(spills) or 'none'}")
     for src in _cuda.SOURCES:
         _cuda.load(src)
     log(f"[build] {len(logs)} libraries in {time.perf_counter() - t0:.1f} s")

@@ -15,14 +15,14 @@
 // here streams K/V tiles through shared memory with an online softmax.
 //
 // Bound on the H100.  At D=40 (level 0: B=32, S=1536, H=8) the floor is the
-// exponentials, one per logit: 604 M at 16 ex2 a clock per SM (132 SMs,
-// 1.83 GHz) take 0.156 ms, against 0.098 ms for the 4*B*H*S^2*D = 96.6 GFLOP
-// at 989 TFLOP/s and 0.038 ms for q, k, v, o's bytes.  At D=80 the products
-// cost twice the exponentials' share (0.0122 against 0.0098 ms at level 1,
-// S=384), where the 63 MB of q, k, v, o (0.0188 ms) set the floor; at longer
-// S the products would.  So the design keeps the special-function unit and
-// the tensor cores busy at once, and spends no tensor work on padding it can
-// avoid.
+// exponentials, one per logit: 604 M at 16 ex2 a clock per SM (132 SMs at
+// the top clock of 1.98 GHz) take 0.144 ms, against 0.098 ms for the
+// 4*B*H*S^2*D = 96.6 GFLOP at 989 TFLOP/s and 0.038 ms for q, k, v, o's
+// bytes.  At D=80 the products cost more than the exponentials (0.0122
+// against 0.0090 ms at level 1, S=384), where the 63 MB of q, k, v, o
+// (0.0188 ms) set the floor; at longer S the products would.  So the design
+// keeps the special-function unit and the tensor cores busy at once, and
+// spends no tensor work on padding it can avoid.
 //
 // Two bf16 instances, chosen by D in synfmc_flash_fwd_bf16 (both written
 // here by hand; a shape goes to one or the other, never back):
@@ -114,6 +114,7 @@ struct WgTiles {
                                                                                      : 2;
   static constexpr int kBarOffset = kStages * kStageBytes + kQBytes;
   static constexpr size_t kSmem = (size_t)kBarOffset + 8 * (2 * kStages + 4);
+  static_assert(kSmem <= kSmemOptin, "a wgmma forward block above the H100's opt-in");
 };
 
 // One K or V tile of kWgKeys rows, W columns stored (W % 8 == 0), into the
@@ -644,10 +645,17 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, float* ls
   return (int)cudaGetLastError();
 }
 
+// The mma.sync instance's block: a q tile and two double-buffered K/V tiles.
+template <int DP>
+constexpr size_t mma_smem() {
+  return (size_t)(BQ + 4 * BK) * lds<DP>() * sizeof(bf16);
+}
+
 template <int DP>
 int launch_mma(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
                int H, int D, float scale, cudaStream_t stream) {
-  const size_t smem = (size_t)(BQ + 4 * BK) * lds<DP>() * sizeof(bf16);
+  constexpr size_t smem = mma_smem<DP>();
+  static_assert(smem <= kSmemOptin, "an mma.sync forward block above the H100's opt-in");
   DeviceInfo info;
   cudaError_t e = device_info(&info);
   if (e != cudaSuccess) return (int)e;
@@ -661,40 +669,60 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, float* lse,
   return (int)cudaGetLastError();
 }
 
+// The bf16 instances by head dim D (a multiple of 8 up to 256): D <= 128 runs
+// the wgmma one as (D, QK^T depth, PV's N), 128 < D <= 256 the mma.sync one
+// at D rounded up to 16 (ops/flash_attention.py:fwd_instance mirrors this).
+#define SYNFMC_FWD_WGMMA(X)                                                                \
+  X(8, 16, 40) X(16, 16, 40) X(24, 32, 40) X(32, 32, 40) X(40, 48, 40) X(48, 48, 48)    \
+  X(56, 64, 64) X(64, 64, 64) X(72, 80, 80) X(80, 80, 80) X(88, 96, 96) X(96, 96, 96)   \
+  X(104, 112, 112) X(112, 112, 112) X(120, 128, 128) X(128, 128, 128)
+#define SYNFMC_FWD_MMA(X) \
+  X(144) X(160) X(176) X(192) X(208) X(224) X(240) X(256)
+
 // q, k, v, o: (B, S, H*D) contiguous, 16-byte aligned; D % 8 == 0, D <= 256.
-// lse: (B, H, S) fp32, or null when no gradient is wanted.  D <= 128 runs the
-// wgmma instance, 128 < D <= 256 the mma.sync one (ops/flash_attention.py:
-// fwd_instance mirrors this choice and fwd_unit_bytes the shared memory).
+// lse: (B, H, S) fp32, or null when no gradient is wanted.  A block above
+// the device's opt-in shared memory returns cudaErrorInvalidValue before any
+// launch (synfmc_flash_fwd_bf16_smem names its bytes).
 SYNFMC_API int synfmc_flash_fwd_bf16(const void* q, const void* k, const void* v, void* o,
                                      float* lse, int B, int S, int H, int D, float scale,
                                      void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (D <= 0 || D % 8 || D > 256) return (int)cudaErrorInvalidValue;
-#define SYNFMC_WG(DK, DQK, NPV) \
-  case DK:                      \
+#define WG(DK, DQK, NPV) \
+  case DK:               \
     return launch_wgmma<DQK, NPV>(q, k, v, o, lse, B, S, H, D, scale, st);
-#define SYNFMC_MMA(DP) \
-  case DP:             \
+#define MMA(DP) \
+  case DP:      \
     return launch_mma<DP>(q, k, v, o, lse, B, S, H, D, scale, st);
+  if (D <= 0 || D % 8 || D > 256) return (int)cudaErrorInvalidValue;
   if (D <= 128) {
-    switch (D) {
-      SYNFMC_WG(8, 16, 40) SYNFMC_WG(16, 16, 40) SYNFMC_WG(24, 32, 40) SYNFMC_WG(32, 32, 40)
-      SYNFMC_WG(40, 48, 40) SYNFMC_WG(48, 48, 48) SYNFMC_WG(56, 64, 64) SYNFMC_WG(64, 64, 64)
-      SYNFMC_WG(72, 80, 80) SYNFMC_WG(80, 80, 80) SYNFMC_WG(88, 96, 96) SYNFMC_WG(96, 96, 96)
-      SYNFMC_WG(104, 112, 112) SYNFMC_WG(112, 112, 112) SYNFMC_WG(120, 128, 128)
-      SYNFMC_WG(128, 128, 128)
-    }
+    switch (D) { SYNFMC_FWD_WGMMA(WG) }
   } else {
-    switch (cdiv(D, 16) * 16) {
-      SYNFMC_MMA(144) SYNFMC_MMA(160) SYNFMC_MMA(176) SYNFMC_MMA(192) SYNFMC_MMA(208)
-      SYNFMC_MMA(224) SYNFMC_MMA(240) SYNFMC_MMA(256)
-    }
+    switch (cdiv(D, 16) * 16) { SYNFMC_FWD_MMA(MMA) }
   }
-#undef SYNFMC_WG
-#undef SYNFMC_MMA
+#undef WG
+#undef MMA
   return (int)cudaErrorInvalidValue;
 }
 
+// Dynamic shared memory (bytes) of one block of the bf16 instance that
+// synfmc_flash_fwd_bf16 runs at head dim D; 0 for a D it does not take.
+SYNFMC_API int synfmc_flash_fwd_bf16_smem(int D) {
+#define WG(DK, DQK, NPV) \
+  case DK:               \
+    return (int)WgTiles<DQK, NPV>::kSmem;
+#define MMA(DP) \
+  case DP:      \
+    return (int)mma_smem<DP>();
+  if (D <= 0 || D % 8 || D > 256) return 0;
+  if (D <= 128) {
+    switch (D) { SYNFMC_FWD_WGMMA(WG) }
+  } else {
+    switch (cdiv(D, 16) * 16) { SYNFMC_FWD_MMA(MMA) }
+  }
+#undef WG
+#undef MMA
+  return 0;
+}
 
 SYNFMC_API int synfmc_flash_fwd_f32(const void* q, const void* k, const void* v, void* o,
                                     float* lse, int B, int S, int H, int D, float scale,

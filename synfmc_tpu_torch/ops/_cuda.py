@@ -20,10 +20,6 @@ import subprocess
 import threading
 from pathlib import Path
 
-# Opt-in shared memory per block of the H100 (cudaDevAttrMaxSharedMemoryPerBlockOptin),
-# a constant so that the CPU and the card route the same shapes the same way.
-SMEM_OPTIN = 232448
-
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("flash_fwd", "flash_bwd", "temporal_fwd", "temporal_bwd", "group_norm")
 NVCC_FLAGS = [

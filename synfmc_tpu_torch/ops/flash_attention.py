@@ -9,9 +9,9 @@ online softmax, because one head's K/V at S=1536 no longer fits a block's
 shared memory as it fit the TPU's VMEM.  In bf16 it has two instances, chosen
 by the head dim (:func:`fwd_instance`): D <= 128 on wgmma, one persistent
 block an SM fed by a producer warpgroup's ring of asynchronous K/V copies;
-128 < D <= 256 on mma.sync.  When a gradient is
-wanted it also writes each row's fp32 log-sum-exp, so the backward
-recomputes P without a second softmax.
+128 < D <= 256 on mma.sync.  When a gradient is wanted it also writes each
+row's fp32 log-sum-exp, so the backward recomputes P without a second
+softmax.
 
 The backward replaces _bwd_packed_single_kernel, _bwd_packed_kernel and the
 padded _bwd_kernel with one kernel set (csrc/flash_bwd.cu): a prologue pass
@@ -32,11 +32,9 @@ from __future__ import annotations
 import torch
 
 from synfmc_tpu_torch.ops import _cuda
-from synfmc_tpu_torch.ops._cuda import SMEM_OPTIN
 
 MAX_HEAD_DIM = 256
 WGMMA_MAX_HEAD_DIM = 128
-_WG_KEYS = 128  # keys a K/V tile of the wgmma instance
 _PV_N = (40, 48, 64, 80, 96, 112, 128)  # csrc/wgmma.cuh's instances of N
 
 
@@ -50,27 +48,6 @@ def fwd_instance(d: int, dtype=torch.bfloat16) -> tuple:
     if d <= WGMMA_MAX_HEAD_DIM:
         return ("wgmma", -(-d // 16) * 16, next(n for n in _PV_N if n >= d))
     return ("mma_sync", -(-d // 16) * 16)
-
-
-def fwd_unit_bytes(d: int, dtype=torch.bfloat16) -> int:
-    """Dynamic shared memory (bytes) of one forward block at head dim ``d``,
-    as the launchers of csrc/flash_fwd.cu size it.  wgmma instance: a ring
-    of 128-key K/V stages (4, 3 or 2: as many as fit the opt-in), two
-    buffers of an item's Q rows (192 at a QK^T depth <= 48, else 128) on
-    rows padded by 8, and a full and an empty mbarrier a stage and a Q
-    buffer.  mma.sync instance: a 64-row q tile and two double-buffered
-    64-key K/V tiles on rows padded by 8.  fp32: q and o tiles (64 rows) and
-    a 32-key K/V tile."""
-    inst = fwd_instance(d, dtype)
-    if inst[0] == "wgmma":
-        stage = _WG_KEYS * (inst[1] + inst[2]) * 2
-        q_bytes = 2 * (192 if inst[1] <= 48 else 128) * (inst[1] + 8) * 2
-        bars = lambda stages: 8 * (2 * stages + 4)
-        stages = next(n for n in (4, 3, 2) if n * stage + q_bytes + bars(n) <= _cuda.SMEM_OPTIN)
-        return stages * stage + q_bytes + bars(stages)
-    if inst[0] == "mma_sync":
-        return (64 + 4 * 64) * (inst[1] + 8) * 2
-    return (2 * 64 * (d + 1) + 2 * 32 * d) * 4
 
 
 def flash_supported(q) -> bool:
@@ -168,10 +145,6 @@ def flash_attention_fwd(q2, k2, v2, scale: float, heads: int, with_lse: bool = F
     if q2.device.type == "cpu":
         return flash_attention_plain(q2, k2, v2, scale, heads), None
     _check_cuda("flash_attention", (q2, k2, v2), q2.dtype)
-    need = fwd_unit_bytes(d, q2.dtype)
-    if need > SMEM_OPTIN:
-        raise ValueError(f"flash_attention: head dim {d} needs {need} bytes of shared memory, "
-                         f"above the {SMEM_OPTIN} a block can have")
     name = "synfmc_flash_fwd_bf16" if q2.dtype == torch.bfloat16 else "synfmc_flash_fwd_f32"
     P, I, F32 = _cuda.P, _cuda.I, _cuda.F32
     fn = _cuda.entry("flash_fwd", name, [P, P, P, P, P, I, I, I, I, F32, P])
@@ -180,6 +153,9 @@ def flash_attention_fwd(q2, k2, v2, scale: float, heads: int, with_lse: bool = F
            if with_lse else None)
     err = fn(q2.data_ptr(), k2.data_ptr(), v2.data_ptr(), out.data_ptr(),
              lse.data_ptr() if with_lse else None, b, s, heads, d, float(scale), _stream(q2))
+    if err and q2.dtype == torch.bfloat16:
+        need = _cuda.entry("flash_fwd", "synfmc_flash_fwd_bf16_smem", [I])(d)
+        _cuda.check(err, f"flash_attention (head dim {d}: {need} bytes of shared memory a block)")
     _cuda.check(err, "flash_attention")
     flash_attention.launches += 1
     return out, lse

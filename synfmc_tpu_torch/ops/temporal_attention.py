@@ -23,10 +23,12 @@ from __future__ import annotations
 import torch
 
 from synfmc_tpu_torch.ops import _cuda
-from synfmc_tpu_torch.ops._cuda import SMEM_OPTIN
 from synfmc_tpu_torch.ops.flash_attention import _check_cuda, _stream
 
 MAX_FRAMES = 64
+# Opt-in shared memory per block of the H100 (cudaDevAttrMaxSharedMemoryPerBlockOptin),
+# a constant so that the CPU and the card route the same shapes the same way.
+SMEM_OPTIN = 232448
 
 
 def _seg_stride(seg: int) -> int:

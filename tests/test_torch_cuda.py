@@ -156,16 +156,25 @@ def test_flash_fwd_runs_its_instance(gen, d, kernel):
     assert kernel == {"wgmma": "flash_fwd_wgmma", "mma_sync": "flash_fwd_mma"}[fwd_instance(d)[0]]
 
 
-def test_flash_fwd_raises_above_the_optin(gen, monkeypatch):
-    """A block above the opt-in raises before any launch, with the bytes."""
-    import synfmc_tpu_torch.ops.flash_attention as fa
+def test_flash_fwd_blocks_fit_the_optin(gen):
+    """Each bf16 instance's block, as the launcher sizes it, fits this card's
+    opt-in at every D the gate takes; worked by hand: a wgmma stage is 128
+    keys x (QK^T depth + PV's N) bf16, two Q buffers of 192 rows (depth <= 48)
+    or 128 on rows padded by 8, 16 bytes of mbarriers a stage and 32 for the
+    Q buffers, as many of 4, 3, 2 stages as fit 232,448 bytes; the mma.sync
+    block a 64-row q tile and two double-buffered 64-key K/V tiles."""
+    from synfmc_tpu_torch.ops import _cuda
 
-    monkeypatch.setattr(fa, "SMEM_OPTIN", 100_000)
-    q = _rand(gen, 1, 64, 2 * 80, dtype=torch.bfloat16)
-    before = fa.flash_attention.launches
-    with pytest.raises(ValueError, match="208992 bytes"):
-        fa.flash_attention(q, q, q, 80 ** -0.5, 2)
-    assert fa.flash_attention.launches == before
+    smem = _cuda.entry("flash_fwd", "synfmc_flash_fwd_bf16_smem", [_cuda.I])
+    assert smem(40) == 4 * 128 * (48 + 40) * 2 + 2 * 192 * 56 * 2 + 8 * 12 == 133216
+    assert smem(80) == 4 * 128 * 160 * 2 + 2 * 128 * 88 * 2 + 8 * 12 == 208992
+    assert smem(96) == 3 * 128 * 192 * 2 + 2 * 128 * 104 * 2 + 8 * 10 == 200784
+    assert smem(112) == 2 * 128 * 224 * 2 + 2 * 128 * 120 * 2 + 8 * 8 == 176192
+    assert smem(128) == 2 * 128 * 256 * 2 + 2 * 128 * 136 * 2 + 8 * 8 == 200768
+    assert smem(136) == (64 + 4 * 64) * (144 + 8) * 2 == 97280
+    assert smem(12) == smem(264) == 0
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    assert all(0 < smem(d) <= optin for d in range(8, 257, 8))
 
 
 # The first five cases, then the edges of the tiles: K7's ragged tail (S =
@@ -303,7 +312,7 @@ def test_unloadable_kernel_raises(gen, monkeypatch, kernel):
 
 
 def test_smem_optin_matches_device(gen):
-    """The gates' opt-in constant is this card's."""
+    """The temporal gate's opt-in constant is this card's."""
     from synfmc_tpu_torch.ops.temporal_attention import SMEM_OPTIN
 
     assert torch.cuda.get_device_properties(0).shared_memory_per_block_optin == SMEM_OPTIN

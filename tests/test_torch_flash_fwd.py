@@ -1,33 +1,37 @@
-"""K1, the flash attention forward, on the CPU: the Python mirrors of the
-launcher's instance choice and shared-memory formula (csrc/flash_fwd.cu), and
-the wgmma instance's schedule replayed in PyTorch against the JAX package's
-packed Pallas kernel in interpret mode.
+"""K1, the flash attention forward, on the CPU: the Python mirror of the
+launcher's instance choice (ops/flash_attention.py:fwd_instance) against
+hand-worked values and against the instance tables of csrc/flash_fwd.cu.
 
 The CUDA kernel runs only on the card (tests/test_torch_cuda.py,
-chip_smoke.py).  Here its arithmetic order is checked: 128-key tiles, the
-online softmax in base 2, each tile's PV issued one tile behind its logits
-and rescaled after it, keys past S masked, the log-sum-exp written at the
-end.
+chip_smoke.py), which also checks each instance's shared memory against the
+card's opt-in.
 """
 
-import math
+import re
+from pathlib import Path
 
-import jax.numpy as jnp
-import numpy as np
 import pytest
 import torch
 
-from synfmc_tpu.ops.flash_attention import flash_attention as jax_flash
-from synfmc_tpu_torch.ops._cuda import SMEM_OPTIN
-from synfmc_tpu_torch.ops.flash_attention import (
-    flash_attention_plain,
-    fwd_instance,
-    fwd_unit_bytes,
-)
+from synfmc_tpu_torch.ops.flash_attention import fwd_instance
 
+FLASH_FWD_CU = Path(__file__).resolve().parent.parent / "synfmc_tpu_torch" / "csrc" / "flash_fwd.cu"
 # Head dims of every K1 launch on the flagship's serving and train paths:
 # level 0 (D = 40) and level 1 (D = 80) of the UNet.
 FLAGSHIP_HEAD_DIMS = (40, 80)
+
+
+def cuda_instances() -> dict:
+    """{D: instance} from flash_fwd.cu's SYNFMC_FWD_WGMMA (D, QK^T depth, PV's
+    N) and SYNFMC_FWD_MMA (D rounded up to 16) tables."""
+    src = FLASH_FWD_CU.read_text()
+    wg = re.search(r"#define SYNFMC_FWD_WGMMA\(X\)(.*?)\n#define", src, re.S).group(1)
+    mma = re.search(r"#define SYNFMC_FWD_MMA\(X\)(.*?)\n\n", src, re.S).group(1)
+    table = {int(d): ("wgmma", int(k), int(n))
+             for d, k, n in re.findall(r"X\((\d+), (\d+), (\d+)\)", wg)}
+    for dp in map(int, re.findall(r"X\((\d+)\)", mma)):
+        table.update({d: ("mma_sync", dp) for d in (dp - 8, dp)})
+    return table
 
 
 @pytest.mark.parametrize("d,want", [
@@ -43,93 +47,15 @@ def test_fwd_instance_by_head_dim(d, want):
     assert fwd_instance(d, torch.float32) == ("f32",)
 
 
-def test_fwd_unit_bytes_follow_the_launchers():
-    """Worked by hand from WgTiles / launch_mma / synfmc_flash_fwd_f32: a
-    wgmma stage is 128 keys x (QK^T depth + PV's N) bf16; two Q buffers of
-    192 rows (depth <= 48) or 128 on rows padded by 8; 16 bytes of
-    mbarriers a stage and 32 for the Q buffers; as many of 4, 3, 2 stages
-    as fit 232,448 bytes."""
-    assert fwd_unit_bytes(40) == 4 * 128 * (48 + 40) * 2 + 2 * 192 * 56 * 2 + 8 * 12 == 133216
-    assert fwd_unit_bytes(80) == 4 * 128 * 160 * 2 + 2 * 128 * 88 * 2 + 8 * 12 == 208992
-    assert fwd_unit_bytes(96) == 3 * 128 * 192 * 2 + 2 * 128 * 104 * 2 + 8 * 10 == 200784
-    assert fwd_unit_bytes(112) == 2 * 128 * 224 * 2 + 2 * 128 * 120 * 2 + 8 * 8 == 176192
-    assert fwd_unit_bytes(128) == 2 * 128 * 256 * 2 + 2 * 128 * 136 * 2 + 8 * 8 == 200768
-    assert fwd_unit_bytes(136) == (64 + 4 * 64) * (144 + 8) * 2 == 97280
-    assert fwd_unit_bytes(80, torch.float32) == (2 * 64 * 81 + 2 * 32 * 80) * 4 == 61952
+@pytest.mark.parametrize("d", range(8, 257, 8))
+def test_fwd_instance_matches_the_launcher_tables(d):
+    """Every D the gate takes (a multiple of 8 up to 256) has one entry in
+    the launcher's tables, and the mirror names it."""
+    table = cuda_instances()
+    assert sorted(table) == list(range(8, 257, 8))
+    assert fwd_instance(d) == table[d]
 
 
-def test_flagship_k1_keys_take_wgmma_within_the_optin():
+def test_flagship_k1_keys_take_wgmma():
     for d in FLAGSHIP_HEAD_DIMS:
         assert fwd_instance(d)[0] == "wgmma"
-        assert fwd_unit_bytes(d) <= SMEM_OPTIN
-
-
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_every_head_dim_fits_the_optin(dtype):
-    """Every D the gate takes (a multiple of 8 up to 256) has a block that
-    fits, so the wrapper's pre-launch check never declines a gated shape."""
-    for d in range(8, 257, 8):
-        assert fwd_unit_bytes(d, dtype) <= SMEM_OPTIN, d
-
-
-def kernel_schedule(q2, k2, v2, scale, heads, keys=128):
-    """flash_fwd_wgmma's arithmetic in its order on (B, S, H*D): q scaled in
-    its type; per key tile the logits, then the previous tile's P V added to
-    O, then the running max, exp2(s*log2e - m*log2e), the sum, and O
-    rescaled; P rounded to the operand type; the last PV after the loop.
-    Returns (out, lse)."""
-    b, s, c = q2.shape
-    d = c // heads
-    split = lambda x: x.float().reshape(b, s, heads, d).transpose(1, 2)
-    q = split((q2.float() * scale).to(q2.dtype))
-    k, v = split(k2), split(v2)
-    log2e = 1 / math.log(2)
-    m = torch.full((b, heads, s, 1), -math.inf)
-    l = torch.zeros(b, heads, s, 1)
-    o = torch.zeros(b, heads, s, d)
-    p_prev = v_prev = None
-    for t0 in range(0, s, keys):
-        st = q @ k[:, :, t0:t0 + keys].transpose(-1, -2)  # keys past S are absent: masked
-        if p_prev is not None:
-            o = o + p_prev @ v_prev
-        m_new = torch.maximum(m, st.amax(-1, keepdim=True))
-        alpha = torch.exp2(m * log2e - m_new * log2e)
-        p = torch.exp2(st * log2e - m_new * log2e)
-        l = l * alpha + p.sum(-1, keepdim=True)
-        o = o * alpha
-        m = m_new
-        p_prev, v_prev = p.to(v2.dtype).float(), v[:, :, t0:t0 + keys]
-    o = (o + p_prev @ v_prev) / l
-    return o.transpose(1, 2).reshape(b, s, c).to(q2.dtype), (m + torch.log(l))[..., 0]
-
-
-# Tile edges: one tile plus one key, fewer keys than a tile, two and a half
-# tiles at D = 80, three tiles at D = 128.
-SCHEDULE_CASES = [(1, 129, 2, 40), (2, 5, 2, 40), (2, 300, 2, 80), (1, 384, 1, 128)]
-
-
-@pytest.mark.parametrize("b,s,h,d", SCHEDULE_CASES)
-def test_kernel_schedule_matches_pallas_interpret(rng, b, s, h, d):
-    """In fp32 the schedule equals the TPU kernel (and its log-sum-exp the
-    logits' logsumexp)."""
-    q, k, v = (rng.normal(size=(b, s, h, d)).astype(np.float32) for _ in range(3))
-    scale = d ** -0.5
-    want = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale, True))
-    t = lambda x: torch.from_numpy(x).reshape(b, s, h * d)
-    got, lse = kernel_schedule(t(q), t(k), t(v), scale, h)
-    np.testing.assert_allclose(got.reshape(b, s, h, d).numpy(), want, atol=2e-5)
-    logits = torch.einsum("bqhd,bkhd->bhqk", torch.from_numpy(q) * scale, torch.from_numpy(k))
-    torch.testing.assert_close(lse, torch.logsumexp(logits, -1), atol=1e-5, rtol=1e-5)
-
-
-@pytest.mark.parametrize("b,s,h,d", SCHEDULE_CASES)
-def test_kernel_schedule_matches_plain_in_bf16(rng, b, s, h, d):
-    """In bf16 (P rounded before PV, in tiles) the schedule stays within the
-    kernels' bf16 limit of the plain version, which rounds the whole row's P
-    against the row's final max."""
-    q, k, v = (torch.from_numpy(rng.normal(size=(b, s, h * d)).astype(np.float32))
-               .to(torch.bfloat16) for _ in range(3))
-    got, _ = kernel_schedule(q, k, v, d ** -0.5, h)
-    want = flash_attention_plain(q.float(), k.float(), v.float(), d ** -0.5, h)
-    err = (got.float() - want).abs().max().item()
-    assert err < 0.05 and err / want.abs().max().item() < 2 ** -6, err

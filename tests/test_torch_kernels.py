@@ -34,7 +34,12 @@ from synfmc_tpu_torch.ops.temporal_attention import (
 ATOL = 2e-5
 
 
-@pytest.mark.parametrize("b,s,h,d", [(2, 64, 2, 40), (1, 48, 4, 16), (2, 24, 2, 80)])
+# The first three cases, then the CUDA kernel's tile edges: one 128-key tile
+# plus one key, fewer keys than a tile, two and a half tiles at D = 80, three
+# tiles at D = 128.
+@pytest.mark.parametrize("b,s,h,d", [(2, 64, 2, 40), (1, 48, 4, 16), (2, 24, 2, 80),
+                                     (1, 129, 2, 40), (2, 5, 2, 40), (2, 300, 2, 80),
+                                     (1, 384, 1, 128)])
 def test_flash_plain_matches_pallas_interpret(rng, b, s, h, d):
     q, k, v = (rng.normal(size=(b, s, h, d)).astype(np.float32) for _ in range(3))
     scale = d ** -0.5
