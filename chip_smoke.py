@@ -16,7 +16,9 @@ Phases, each raising on failure (non-zero exit):
                 call) and bound times; kernel and library times are taken
                 with the device idle at each call (host launch cost
                 included) and again as device time only (`device_ms`,
-                `library_device_ms`);
+                `library_device_ms`); K3's fused SiLU over v in [-20, 20]
+                against v * sigmoid(v) (bf16 within one unit in the last
+                place, fp32 within 2**-16 relative);
   4. compose  - the tiny-width pipeline in fp32 on the GPU (kernels) and on
                 the CPU (plain versions) with the same weights: final
                 latents within 1e-3;
@@ -408,8 +410,91 @@ def _row(kind, key, count, err, rel, kern, plain, lib, sets, flops, nbytes, rate
     return row
 
 
-def check_kernels(seen, rates, fp32=True):
-    """Forward kernels at the recorded keys (bf16), then one fp32 case each."""
+def device_events(fn, tries: int = 3) -> list[tuple[str, float]]:
+    """(name, device ms) of each CUDA kernel that one call of ``fn`` launches,
+    from a torch.profiler window; torch.cuda._sleep's own kernel is left out.
+    The call waits behind a 5 ms device sleep, and the window stays open
+    20 ms after the device is done: the tracer can drop the kernels near the
+    edges of its window.  A window that holds no device event at all, the
+    sleep's included, is a lost trace: it is logged and taken again, up to
+    ``tries`` windows in all."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(int(SLEEP_CYCLES_PER_S * 5e-3))
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            return [(e.name, (e.time_range.end - e.time_range.start) / 1e3) for e in events
+                    if "spin_kernel" not in e.name]
+        log(f"[trace] window {attempt} of {tries} holds no device event")
+    raise AssertionError(f"the tracer recorded no device event in {tries} windows")
+
+
+def gn_launches(fn) -> Counter:
+    """CUDA kernels one call of ``fn`` launches, from a trace: K3's by their
+    kernel name, others by the start of theirs."""
+    fn()
+    torch.cuda.synchronize()
+    return Counter(next((k for k in ("gn_cluster", "gn_partials", "gn_apply") if k in name),
+                        name[:40])
+                   for name, _ in device_events(fn))
+
+
+def gn_plan_row(key, kern, sets, row, traced):
+    """K3's plan at ``key`` in the kernel line: mode, cluster size, blocks;
+    at the first key of each mode (``traced`` holds those seen) the kernels
+    one call launches, from a trace, checked (mode A: one gn_cluster; mode
+    B: gn_partials then gn_apply)."""
+    from synfmc_tpu_torch.ops.fused_groupnorm import _plan
+
+    _, n, s, c, groups, eps, act = key
+    plan = _plan(n, s, c, groups, sets[0][0].element_size())
+    row["plan"] = plan._asdict()
+    text = f"plan {plan.mode} run={plan.run} cluster={plan.cluster} blocks={plan.blocks}"
+    if plan.mode not in traced:
+        traced.add(plan.mode)
+        names = gn_launches(lambda: kern(*sets[0]))
+        want = ["gn_cluster"] if plan.mode == "A" else ["gn_partials", "gn_apply"]
+        if names != Counter(want):
+            raise AssertionError(f"group_norm {key}: plan {plan.mode} launched {dict(names)}")
+        text += f"; kernels per call {dict(names)}"
+    log(f"  {'':12s} {text}")
+
+
+# K3's SiLU against v * sigmoid(v) in float64: bf16 within one unit in the
+# last place of the output (its rounding is half of that), fp32 within 2**-16.
+SILU_REL_TOL = {torch.bfloat16: 2 ** -7, torch.float32: 2 ** -16}
+
+
+def gn_silu_range() -> None:
+    """K3's fused SiLU over v in [-20, 20]: with scale 0 and bias v a
+    channel's output is silu(v) whatever the statistics, so every channel of
+    a (2, 64, 4096) slab checks one v.  Largest absolute and relative errors
+    against v * sigmoid(v) in float64 on the same (rounded) v."""
+    from synfmc_tpu_torch.ops.fused_groupnorm import fused_group_norm
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for dtype, tol in SILU_REL_TOL.items():
+        v = torch.linspace(-20, 20, 4096, device="cuda").to(dtype)
+        x = torch.randn(2, 64, 4096, generator=gen, device="cuda").to(dtype)
+        got = fused_group_norm(x, torch.zeros_like(v), v, 32, 1e-6, "silu").double()
+        want = v.double() * torch.sigmoid(v.double())
+        err = (got - want).abs()
+        rel = torch.where(want != 0, err / want.abs(), err)
+        worst = int(rel.flatten().argmax()) % 4096
+        log(f"[kernels] K3 silu over v in [-20, 20], {dtype}: max abs {err.max().item():.3e}, "
+            f"max rel {rel.max().item():.3e} (limit {tol:.3e}) at v = {v[worst].item():.4f}")
+        if rel.max().item() > tol:
+            raise AssertionError(f"K3 silu {dtype}: relative error {rel.max().item()} > {tol}")
+
+
+def check_kernels(seen, rates, traced, fp32=True):
+    """Forward kernels at the recorded keys (bf16), then one fp32 case each;
+    ``traced``: the K3 modes whose launches a trace has checked."""
     gen = torch.Generator(device="cuda").manual_seed(1234)
     results = {k: [] for k in seen}
     for kind, keys in seen.items():
@@ -424,6 +509,8 @@ def check_kernels(seen, rates, fp32=True):
                                      f"{rel} of the largest output (limit {BF16_REL_TOL})")
             results[kind].append(_row(kind, key, count, err, rel, kern, plain, lib, sets, flops,
                                       nbytes, rate, exps, rates))
+            if kind == "group_norm":
+                gn_plan_row(key, kern, sets, results[kind][-1], traced)
     if not fp32:
         return results
     # one fp32 case per kernel, TF32 off everywhere
@@ -539,19 +626,18 @@ def trace_kernels(fn, match, reps=10) -> Counter:
     """Device ms per call of each CUDA kernel whose name contains ``match``
     (every kernel when it is empty), from a torch.profiler trace of ``reps``
     calls of ``fn`` queued back to back after 3 untraced ones."""
-    from torch.profiler import ProfilerActivity, profile
-
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def calls():
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
+
     kernels = Counter()
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA and match in e.name:
-            kernels[e.name[:90]] += (e.time_range.end - e.time_range.start) / 1e3 / reps
+    for name, ms in device_events(calls):
+        if match in name:
+            kernels[name[:90]] += ms / reps
     return kernels
 
 
@@ -958,7 +1044,7 @@ _FAMILIES = (  # (family, substrings of the kernel name), first match wins
     ("K5 flash_bwd", ("flash_bwd",)),
     ("K2 temporal_fwd", ("temporal_fwd",)),
     ("K8 temporal_bwd", ("temporal_bwd",)),
-    ("K3 group_norm", ("gn_stats", "gn_finalize", "gn_apply")),
+    ("K3 group_norm", ("gn_cluster", "gn_partials", "gn_apply")),
     ("conv (cuDNN)", ("fprop", "conv", "dgrad", "wgrad", "cudnn")),
     ("gemm (cuBLAS)", ("gemm", "nvjet", "cutlass", "xmma")),
     ("copy/cat", ("copy", "cat", "permute", "transpose", "memcpy", "memset")),
@@ -970,19 +1056,26 @@ _FAMILIES = (  # (family, substrings of the kernel name), first match wins
 def device_spans(prof, per: int):
     """(device-busy ms, span ms, kernels, device ms by family), each per
     ``per`` steps, from a trace's CUDA events: busy is the union of kernel
-    intervals, span the first start to the last end."""
+    intervals, span the first start to the last end.  Logs the copy/cat
+    family's ten largest kernels by name (launches and ms, per step)."""
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA)
     busy_us, reach = 0.0, spans[0][0]
     for start, end, _ in spans:
         busy_us += max(0.0, end - max(start, reach))
         reach = max(reach, end)
-    families = Counter()
+    families, copies, copy_launches = Counter(), Counter(), Counter()
     for start, end, n in spans:
         n = n.lower()
         fam = next((f for f, keys in _FAMILIES if any(k in n for k in keys)),
                    "other elementwise")
         families[fam] += (end - start) / 1e3 / per
+        if fam == "copy/cat":
+            short = re.sub(r"void |at::native::|\(anonymous namespace\)::", "", n)[:120]
+            copies[short] += (end - start) / 1e3 / per
+            copy_launches[short] += 1 / per
+    log("[profile] copy/cat by kernel (launches, ms per step): " + json.dumps(
+        {k: [copy_launches[k], round(v, 3)] for k, v in copies.most_common(10)}))
     return (busy_us / 1e3 / per, (spans[-1][1] - spans[0][0]) / 1e3 / per, len(spans) / per,
             {k: round(v, 3) for k, v in families.most_common()})
 
@@ -1129,13 +1222,15 @@ def main() -> int:
     log(f"[main] flagship cam-stage pipeline built in {time.perf_counter() - t0:.1f} s, "
         f"UNet {sum(p.numel() for p in pipe.unet.parameters()) / 1e6:.0f} M params, {pipe.unet.dtype}")
 
+    gn_silu_range()
     log("[kernels] shapes recorded from one full-width forward, and K4's stand-in")
     seen = record_shapes(pipe, chs)
     per_forward = {k: sum(n for key, n in v.items() if key[0] == "unet") for k, v in seen.items()}
     if per_forward != PER_FORWARD:
         raise AssertionError(f"per-forward launches {per_forward} != {PER_FORWARD}")
     seen["flash"][K47_KEY] = 0
-    results = check_kernels(seen, rates)
+    traced = set()
+    results = check_kernels(seen, rates, traced)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1163,7 +1258,7 @@ def main() -> int:
     log("[backward] kernels at the train step's recorded shapes, K6/K7 stand-ins, fp32")
     fwd_train = {k: Counter({key: n for key, n in tr["seen"][k].items() if key not in seen[k]})
                  for k in ("flash", "temporal", "group_norm")}
-    for kind, rows in check_kernels(fwd_train, rates, fp32=False).items():
+    for kind, rows in check_kernels(fwd_train, rates, traced, fp32=False).items():
         results[kind] += rows
     bwd_seen = {k: Counter(tr["seen"][k]) for k in ("flash_bwd", "temporal_bwd")}
     bwd_seen["flash_bwd"][K6_KEY] = bwd_seen["flash_bwd"][K47_KEY] = 0

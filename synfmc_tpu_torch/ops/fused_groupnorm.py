@@ -1,10 +1,12 @@
-"""Fused GroupNorm(+activation): the wrapper of CUDA kernel K3, its plain
-version, and the autograd Function around it.
+"""Fused GroupNorm(+activation): the wrapper of CUDA kernel K3, its plan,
+its plain version, and the autograd Function around it.
 
 Replaces synfmc_tpu/ops/pallas_groupnorm.py:_gn_kernel.  The kernel
-(csrc/group_norm.cu) is bound by bytes; it splits each sample's reduction
-over many blocks (partial fp32 sums, a finalize step, one normalise pass)
-so that a VAE slab of 12.6 M elements in 32 groups still fills the card.
+(csrc/group_norm.cu) is bound by bytes.  :func:`_plan` cuts each sample
+into items of whole groups: in mode A an item's rows fit the shared memory
+of a thread-block cluster, so one launch reads x once and writes once; in
+mode B (a slab whose narrowest item fits no cluster) a stats pass and an
+apply pass read x twice in two launches.
 
 The backward is PyTorch ops on both devices (:func:`group_norm_bwd`), as the
 JAX package's _fused_gn_bwd differentiates its XLA path: there is no
@@ -16,15 +18,147 @@ it launches the kernel or raises.
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
 from synfmc_tpu_torch.ops import _cuda
 
 _ACTS = {None: 0, "silu": 1, "relu": 2}
-_MAX_C = 6144  # 2*C fp32 per-channel sums in 48 KB of shared memory
-_TARGET_BLOCKS = 2 * 132  # two stats blocks per SM of an H100
+_MAX_C = 6144  # group_norm_supported's channel limit: a mode-B stats block stays in the opt-in
+
+# The H100's shared memory and SMs, and the kernel's constants (csrc/group_norm.cu).
+SMEM_OPTIN = 232_448      # opt-in dynamic shared memory a block
+_SM_SHARED = 233_472      # shared memory an SM holds; each block also takes 1 KB
+_SMS = 132
+_THREADS = 256            # kThreads
+_CLUSTER_MAX = 8          # kMaxCluster: the portable cluster size
+_MIN_RUN_BYTES = 64       # an item's row is two 32-byte DRAM sectors or more
+# The most shared memory a mode-A block may take, half an SM's, so that at
+# least two blocks overlap one's write with another's load; an item that
+# needs more takes mode B.  It only caps an item's tile: the plan aims for
+# tiles of _TILE_TARGET, at which registers hold five gn_cluster blocks an
+# SM (kResidentA).
+_SMEM_A_MAX = _SM_SHARED // 2 - 1024
+_TILE_TARGET = 32 * 1024
+_TARGET_BLOCKS = 256  # mode A widens its runs while its grid keeps this many blocks
+_TARGET_BLOCKS_B = 8 * _SMS  # mode B's chunks, in all samples
+
+
+class GnPlan(NamedTuple):
+    """How K3 cuts an (N, S, C) slab of G groups.
+
+    mode "A": ``blocks`` = N * (G / run) * cluster; an item is (sample, a run
+    of ``run`` groups), and its ``cluster`` blocks each hold ``rows`` of its
+    rows.  mode "B": ``blocks`` = N * chunks chunks of ``rows`` rows in each
+    pass; clusters of ``cluster`` chunks sum their stats partials.
+    ``vec``: bytes a copy;
+    ``smem``: dynamic shared bytes of a (stats) block.
+    """
+
+    mode: str
+    run: int
+    cluster: int
+    rows: int
+    vec: int
+    smem: int
+    blocks: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _groups_spanned(elems: int, cg: int) -> int:
+    """Most groups of ``cg`` channels that one vector of ``elems`` channels
+    touches (the kernel's groups_spanned)."""
+    return max((v * elems + elems - 1) // cg - v * elems // cg + 1 for v in range(cg))
+
+
+def _vec_bytes(row_bytes: int, esize: int, cg: int) -> int:
+    """The widest copy that divides a row and touches at most two groups."""
+    return next(v for v in (16, 8, 4, esize)
+                if row_bytes % v == 0 and _groups_spanned(v // esize, cg) <= 2)
+
+
+def _lanes(vpr: int, rows: int) -> int:
+    """Row lanes of a block whose rows hold ``vpr`` vectors (the kernel's lanes_of)."""
+    return max(1, min(_THREADS // min(vpr, _THREADS), rows))
+
+
+def _smem_a(rows: int, width: int, run: int, esize: int, vec: int) -> int:
+    vpr = width * esize // vec
+    return _cdiv(rows * width * esize, 16) * 16 + 16 * _lanes(vpr, rows) * vpr + 16 * run
+
+
+def _smem_b(rows: int, c: int, groups: int, esize: int, vec: int) -> int:
+    vpr = c * esize // vec
+    return 16 * _lanes(vpr, rows) * vpr + 4 * 2 * groups
+
+
+def _plan_a(n: int, s: int, c: int, groups: int, esize: int) -> Optional[GnPlan]:
+    """Mode A's plan, or None when no item of whole groups fits a cluster of
+    at most 8 blocks within _SMEM_A_MAX a block.  Runs are whole groups of
+    at least 64 bytes a row (or whole rows), with 16-byte copies where any
+    run allows them.  From the narrowest run of 128 bytes or more, each run takes the
+    smallest cluster whose tile is at most 32 KB; the run widens while the
+    cluster does not grow and 256 blocks or more remain, and narrows where
+    no cluster gives such a tile.  Where none does, the smallest tile that
+    fits wins.  (Chosen on an H100 from timed candidates at the UNet's and
+    the VAE's keys.)"""
+    cg = c // groups
+    runs = [r for r in range(1, groups + 1)
+            if groups % r == 0 and (r == groups or r * cg * esize >= _MIN_RUN_BYTES)]
+    vecs = {r: _vec_bytes(r * cg * esize, esize, cg) for r in runs}
+    if any(v == 16 for v in vecs.values()):
+        runs = [r for r in runs if vecs[r] == 16]
+
+    def fits(run, k):
+        rows = _cdiv(s, k)
+        if _cdiv(s, rows) != k:  # a rank without rows
+            return None
+        smem = _smem_a(rows, run * cg, run, esize, vecs[run])
+        if smem > _SMEM_A_MAX:
+            return None
+        return GnPlan("A", run, k, rows, vecs[run], smem, n * (groups // run) * k)
+
+    def small_tile(run):  # the smallest cluster with a tile of at most 32 KB
+        return next((p for k in range(1, _CLUSTER_MAX + 1) if (p := fits(run, k))
+                     and p.rows * run * cg * esize <= _TILE_TARGET), None)
+
+    i = next((i for i, r in enumerate(runs) if r * cg * esize >= 128), len(runs) - 1)
+    while i > 0 and small_tile(runs[i]) is None:
+        i -= 1
+    best = small_tile(runs[i])
+    if best is None:
+        every = [p for r in runs for k in range(1, _CLUSTER_MAX + 1) if (p := fits(r, k))]
+        return min(every, key=lambda p: (p.rows * p.run, p.cluster), default=None)
+    for r in runs[i + 1:]:
+        wider = small_tile(r)
+        if wider is None or wider.cluster > best.cluster or wider.blocks < _TARGET_BLOCKS:
+            break
+        best = wider
+    return best
+
+
+def _plan_b(n: int, s: int, c: int, groups: int, esize: int) -> GnPlan:
+    """Mode B's plan: about 8 chunks an SM over all samples, at most 2 an SM
+    in one sample.  Where a sample has more than 64 chunks, clusters of 8
+    sum them, so that each apply block reads at most a few dozen partials a
+    group.  (Chosen on an H100 from timed candidates at the VAE's keys.)"""
+    vec = _vec_bytes(c * esize, esize, c // groups)
+    rows = _cdiv(s, max(1, min(s, _cdiv(_TARGET_BLOCKS_B, n), 2 * _SMS)))
+    chunks = _cdiv(s, rows)
+    return GnPlan("B", groups, _CLUSTER_MAX if chunks > 64 else 1, rows, vec,
+                  _smem_b(rows, c, groups, esize, vec), n * chunks)
+
+
+@functools.lru_cache(maxsize=1024)  # tens of microseconds of host time a call otherwise
+def _plan(n: int, s: int, c: int, groups: int, esize: int) -> GnPlan:
+    """K3's plan for an (n, s, c) slab of ``groups`` groups in elements of
+    ``esize`` bytes: mode A where an item fits a cluster, else mode B."""
+    return _plan_a(n, s, c, groups, esize) or _plan_b(n, s, c, groups, esize)
 
 
 def group_norm_plain(x, scale, bias, num_groups: int, eps: float = 1e-5,
@@ -51,10 +185,6 @@ def group_norm_plain(x, scale, bias, num_groups: int, eps: float = 1e-5,
 def group_norm_supported(s: int, c: int) -> bool:
     """Slabs K3 takes: S rows of C channels a sample, C <= _MAX_C and S*C < 2**31."""
     return c <= _MAX_C and s * c < 2 ** 31
-
-
-def _chunks(n: int, s: int) -> int:
-    return max(1, min(s, -(-_TARGET_BLOCKS // n)))
 
 
 def group_norm_bwd(x, scale, bias, dout, num_groups: int, eps: float = 1e-5,
@@ -87,6 +217,15 @@ def group_norm_bwd(x, scale, bias, dout, num_groups: int, eps: float = 1e-5,
     return dx, dscale, dz.sum(dim=(0, 1)).reshape(c).to(bias.dtype)
 
 
+def _entry(dtype: torch.dtype):
+    """K3's C entry for ``dtype``: (x, scale, bias, out, work, N, S, C, G,
+    eps, act, mode, run, cluster, rows, vec, smem, stream) -> cudaError_t; it
+    refuses a plan it cannot run (csrc/group_norm.cu)."""
+    P, I, F32 = _cuda.P, _cuda.I, _cuda.F32
+    name = "synfmc_group_norm_bf16" if dtype == torch.bfloat16 else "synfmc_group_norm_f32"
+    return _cuda.entry("group_norm", name, [P, P, P, P, P, I, I, I, I, F32, I, I, I, I, I, I, I, P])
+
+
 def fused_group_norm_fwd(x, scale, bias, num_groups: int, eps: float = 1e-5,
                          act: Optional[str] = None) -> torch.Tensor:
     """K3: x (N, ..., C) channel-last, contiguous -> same shape; per-sample
@@ -107,19 +246,17 @@ def fused_group_norm_fwd(x, scale, bias, num_groups: int, eps: float = 1e-5,
     s = x.numel() // (n * c)
     if not group_norm_supported(s, c) or x.data_ptr() % 16:
         raise ValueError(f"fused_group_norm: unsupported slab (S={s}, C={c}) or alignment")
-    name = "synfmc_group_norm_bf16" if x.dtype == torch.bfloat16 else "synfmc_group_norm_f32"
-    P, I, F32 = _cuda.P, _cuda.I, _cuda.F32
-    fn = _cuda.entry("group_norm", name, [P, P, P, P, P, I, I, I, I, F32, I, I, P])
-    chunks = _chunks(n, s)
-    chunks = -(-s // -(-s // chunks))  # the kernel's own rounding of rows per chunk
+    fn = _entry(x.dtype)
+    p = _plan(n, s, c, num_groups, x.element_size())
+    parts = 0 if p.mode == "A" else n * _cdiv(_cdiv(s, p.rows), p.cluster) * num_groups * 2
     out = torch.empty_like(x)
-    work = torch.empty(n * chunks * num_groups * 2 + n * c * 2, device=x.device,
-                       dtype=torch.float32)
-    sc = scale.to(device=x.device, dtype=x.dtype).contiguous()
-    bi = bias.to(device=x.device, dtype=x.dtype).contiguous()
+    work = torch.empty(parts, device=x.device, dtype=torch.float32)
+    # read as vectors of the plan's width
+    sc, bi = (t.to(device=x.device, dtype=x.dtype).contiguous() for t in (scale, bias))
+    sc, bi = (t.clone() if t.data_ptr() % 16 else t for t in (sc, bi))
     err = fn(x.data_ptr(), sc.data_ptr(), bi.data_ptr(), out.data_ptr(), work.data_ptr(),
-             n, s, c, num_groups, float(eps), _ACTS[act], chunks,
-             torch.cuda.current_stream(x.device).cuda_stream)
+             n, s, c, num_groups, float(eps), _ACTS[act], "AB".index(p.mode), p.run, p.cluster,
+             p.rows, p.vec, p.smem, torch.cuda.current_stream(x.device).cuda_stream)
     _cuda.check(err, "group_norm")
     fused_group_norm.launches += 1
     return out

@@ -9,6 +9,8 @@ This file imports torch and the port only, and takes chip_smoke.py's
 limits.  Shapes are small: chip_smoke.py covers the main path's shapes.
 """
 
+from collections import Counter
+
 import pytest
 import torch
 
@@ -83,20 +85,78 @@ def test_temporal_kernel(gen, dtype, n, f, h, d):
     assert_close(got, want, dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("n,s,c,groups,act", [(2, 96, 320, 32, "silu"), (1, 4096, 128, 32, None),
-                                              (3, 7, 12, 4, "relu"), (2, 24, 2560, 32, "silu")])
-def test_group_norm_kernel(gen, dtype, n, s, c, groups, act):
-    from synfmc_tpu_torch.ops.fused_groupnorm import fused_group_norm, group_norm_plain
+# The first four cases, then K3's plans and their edges: the level-0 key
+# (mode A, clusters of 8), the up block's 960 channels (groups of 60 bf16
+# bytes, runs of 4), the VAE's first decoder level at N = 1 (48 blocks), a
+# VAE slab that fits no cluster (mode B), and 12 channels in 4 groups (24
+# bf16 bytes a row: 8-byte copies).
+GN_CASES = [(2, 96, 320, 32, "silu"), (1, 4096, 128, 32, None), (3, 7, 12, 4, "relu"),
+            (2, 24, 2560, 32, "silu"), (32, 1536, 320, 32, "silu"), (32, 1536, 960, 32, "silu"),
+            (1, 1536, 512, 32, "silu"), (1, 98304, 128, 32, "silu"), (3, 7, 12, 4, None)]
 
+
+def _gn_inputs(gen, n, s, c, dtype):
     x = _rand(gen, n, s, c, dtype=dtype)
     w = (1 + 0.1 * torch.randn(c, generator=gen, device="cuda")).to(dtype)
     b = (0.1 * torch.randn(c, generator=gen, device="cuda")).to(dtype)
+    return x, w, b
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,s,c,groups,act", GN_CASES)
+def test_group_norm_kernel(gen, dtype, n, s, c, groups, act):
+    from synfmc_tpu_torch.ops.fused_groupnorm import fused_group_norm, group_norm_plain
+
+    x, w, b = _gn_inputs(gen, n, s, c, dtype)
     before = fused_group_norm.launches
     got = fused_group_norm(x, w, b, groups, 1e-6, act)
     assert fused_group_norm.launches == before + 1
     want = group_norm_plain(x.float(), w.float(), b.float(), groups, 1e-6, act)
     assert_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("n,s,c,kernels", [(32, 1536, 320, ["gn_cluster"]),
+                                           (1, 1536, 512, ["gn_cluster"]),
+                                           (1, 98304, 128, ["gn_partials", "gn_apply"])])
+def test_group_norm_launches(gen, n, s, c, kernels):
+    """A mode-A call is one CUDA kernel, a mode-B call two, counted by
+    chip_smoke.py's trace; two calls give the same bits."""
+    from chip_smoke import gn_launches
+    from synfmc_tpu_torch.ops.fused_groupnorm import _plan, fused_group_norm
+
+    assert _plan(n, s, c, 32, 2).mode == ("A" if len(kernels) == 1 else "B")
+    x, w, b = _gn_inputs(gen, n, s, c, torch.bfloat16)
+    first = fused_group_norm(x, w, b, 32, 1e-6, "silu")
+    assert gn_launches(lambda: fused_group_norm(x, w, b, 32, 1e-6, "silu")) == Counter(kernels)
+    assert torch.equal(first, fused_group_norm(x, w, b, 32, 1e-6, "silu"))
+
+
+def test_group_norm_plan_refusal(gen):
+    """A plan whose shared bytes disagree with the kernel's layout, whose
+    clusters do not cover the rows, or whose cluster is too large, is refused
+    by the C entry with an error and launches nothing."""
+    from synfmc_tpu_torch.ops.fused_groupnorm import _entry, _plan
+
+    n, s, c = 32, 1536, 320
+    x, w, b = _gn_inputs(gen, n, s, c, torch.bfloat16)
+    out = torch.zeros_like(x)
+    work = torch.empty(0, device="cuda")
+    p = _plan(n, s, c, 32, 2)
+    for bad in (p._replace(smem=p.smem + 16), p._replace(rows=p.rows - 1),
+                p._replace(cluster=9)):
+        err = _entry(x.dtype)(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+                              work.data_ptr(), n, s, c, 32, 1e-6, 1, 0, bad.run, bad.cluster,
+                              bad.rows, bad.vec, bad.smem, torch.cuda.current_stream().cuda_stream)
+        assert err != 0, bad
+    torch.cuda.synchronize()
+    assert not out.any()
+
+
+def test_group_norm_silu_range(gen):
+    """The fused SiLU over v in [-20, 20], chip_smoke.py's check."""
+    from chip_smoke import gn_silu_range
+
+    gn_silu_range()
 
 
 def assert_grads_close(got, want, dtype):
