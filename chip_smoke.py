@@ -7,8 +7,12 @@
 Phases, each raising on failure (non-zero exit):
   1. device   - needs CUDA; prints the card's name and power limit;
   2. build    - compiles every CUDA kernel from synfmc_tpu_torch/csrc/;
-  3. kernels  - each forward kernel at every shape one full-width serving
-                forward gives it, and K1 at the padded stand-in shape
+  3. kernels  - each forward kernel at every shape the serving modes give it
+                (recorded from a full-width UNet forward on the CFG pair, one
+                at batch 1 as a CFG-cache step runs it, a DeepCache shallow
+                forward, the pose encoder, the ObjectAdapter, a frame decode
+                and a 4-frame decode, each stage's launches checked), and K1
+                at the padded stand-in shape
                 2x1617x(8x40) (K4's case), against its plain PyTorch version
                 on the same bf16 inputs (max abs error < 0.05 and < 2**-6 of
                 the plain output's largest magnitude) plus one fp32 case each
@@ -19,18 +23,27 @@ Phases, each raising on failure (non-zero exit):
                 `library_device_ms`); K3's fused SiLU over v in [-20, 20]
                 against v * sigmoid(v) (bf16 within one unit in the last
                 place, fp32 within 2**-16 relative);
-  4. compose  - the tiny-width pipeline in fp32 on the GPU (kernels) and on
-                the CPU (plain versions) with the same weights: final
-                latents within 1e-3;
+  4. compose  - the tiny-width obj-stage pipeline in fp32 on the GPU (kernels)
+                and on the CPU (plain versions) with the same weights and
+                inputs: one OMC request with traj features from a raster
+                through the ObjectAdapter, then DPM-Solver++(2M), DeepCache,
+                CFG-cache, turbo + DPM++ and multidiff windows with a chunked
+                decode: final latents (and the chunked decode's frames)
+                within 1e-3;
   5. train-compose - the tiny-width stage-2 train step in fp32 on the GPU and
                 on the CPU with the same weights, batches and draws: loss
                 within 1e-5 relative, every trainable gradient within 1e-3 of
                 its largest magnitude, parameters after 2 AdamW steps within
                 2 lr;
-  6. main     - the flagship cam-stage pipeline of configs/cam.yaml in bf16
-                with seeded random weights answers two requests (16 frames,
-                256x384, guidance 8, 4 DDIM steps, decode) with launch
-                counters checked;
+  6. main     - the flagship obj-stage pipeline of configs/obj.yaml in bf16
+                with seeded random weights answers five requests (16-frame
+                windows at 256x384, guidance 8, 4 steps, decode; REQUESTS):
+                exact DDIM and DPM++ with turbo, both with traj features made
+                from seeded objects with sphere masks through the rasterizer
+                and the ObjectAdapter, DeepCache and CFG-cache with a camera,
+                and 2 multidiff windows (20 frames) decoded 4 frames a call;
+                each request's UNet forwards by kind and its launch counters
+                are checked exactly; ms per step, s/clip, peak per mode;
   7. train    - training.trainers.train("cam", configs/cam.yaml) at full
                 width (batch 1, 16x256x384, bf16, fp32 masters) takes 5 AdamW
                 steps on seeded synthetic batches: finite losses, a finite
@@ -47,7 +60,7 @@ Phases, each raising on failure (non-zero exit):
                 GroupNorm backward (PyTorch ops, not a kernel) timed, and the
                 flash backward's passes (prologue, dK/dV, dQ) by device time
                 at the train step's spatial keys, level 0 first.
-``--profile`` adds a torch.profiler trace of one request's denoise loop and of
+``--profile`` adds a torch.profiler trace of each request's denoise loop and of
 one extra train step: device time by kernel family and the device's idle
 share.  The last two lines of stdout are the kernels' JSON summary and
 {"ok": true, "device": {...}}.
@@ -106,6 +119,7 @@ SLEEP_CYCLES_PER_S = 2.0e9
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CAM_YAML = os.path.join(REPO, "configs", "cam.yaml")  # the flagship cam stage
+OBJ_YAML = os.path.join(REPO, "configs", "obj.yaml")  # the same UNet with the ObjectAdapter
 # The tiny width of tests/test_torch_slice.py.
 TINY_OVERRIDES = {
     "block_out_channels": [32, 64, 128, 128], "cross_attention_dim": 64, "attn_heads": 4,
@@ -114,9 +128,36 @@ TINY_OVERRIDES = {
 }
 
 FRAMES, HEIGHT, WIDTH, STEPS, GUIDANCE, OMCM = 16, 256, 384, 4, 8.0, 700
+# Kernel launches of one UNet forward, the same at batch 2B (the CFG pair)
+# and B (a CFG-cache step); of DeepCache's shallow forward (down_blocks[0]
+# without its downsampler, up_blocks[3], conv_norm_out: 5 spatial
+# transformers, 5 motion modules of 2 temporal attentions, 21 GroupNorms);
+# of the pose encoder per request (batch 1); of one VAE decode call, at any
+# number of frames.  The ObjectAdapter launches none (convs and ReLUs).
 PER_FORWARD = {"flash": 10, "temporal": 41, "group_norm": 81}
-PER_REQUEST = {"temporal": 8}   # pose encoder, batch 1
-PER_FRAME = {"group_norm": 30}  # VAE decoder
+PER_SHALLOW = {"flash": 5, "temporal": 10, "group_norm": 21}
+PER_REQUEST = {"temporal": 8}
+PER_DECODE = {"group_norm": 30}
+PER_STAGE = {"unet": PER_FORWARD, "unet_b": PER_FORWARD, "shallow": PER_SHALLOW,
+             "pose": PER_REQUEST, "adapter": {}, "vae": PER_DECODE, "vae_chunk": PER_DECODE}
+DECODE_CHUNK = 4
+N_OBJECTS = 3
+# The five full-width requests of the obj-stage pipeline: (label, prompt,
+# camera or None, objects?, pipeline arguments).  The multidiff request has
+# no camera: its 20 frames exceed the pose encoder's 16-position temporal
+# encoding (obj.yaml temporal_position_encoding_max_len), which refuses them
+# in both packages.
+REQUESTS = [
+    ("a exact+omc", "a turtle paddles through a coral reef", "pan", True, {}),
+    ("b dpmpp+turbo+omc", "a yellow bird hops along the road", "pan", True,
+     dict(solver="dpmpp_2m", deepcache_interval=2, cfg_cache_interval=2)),
+    ("c deepcache", "a knight marches across a field", "identity", False,
+     dict(deepcache_interval=2)),
+    ("d cfgcache", "a blue dragon soars, seen from behind", "pan", False,
+     dict(cfg_cache_interval=2)),
+    ("e multidiff", "a red car drives along a coast road", None, False,
+     dict(multidiff_total_steps=2, multidiff_overlaps=12, decode_chunk=DECODE_CHUNK)),
+]
 # One stage-2 train step at batch 1: the UNet forward (K1 x10, K2 x41, K3 x81)
 # plus the pose encoder (K2 x8) and the VAE encoder (K3 x22); the backward
 # skips the first level-0 spatial attention, which runs before the first
@@ -230,13 +271,15 @@ def bwd_ok(err: float, rel: float) -> bool:
     return err < BWD_TOL and rel < BWD_REL_TOL
 
 
-def camera(kind: str, b: int = 1):
+def camera(kind: str, b: int = 1, frames=None, height=None, width=None):
     """Intrinsics as scripts/generate.py builds them ([w, h, 0, 0]); c2w either
-    identity or a synthetic pan (translation along x plus a slow yaw)."""
-    intr = torch.tensor([WIDTH, HEIGHT, 0.0, 0.0]).expand(b, FRAMES, 4).contiguous()
-    c2w = torch.eye(4).expand(b, FRAMES, 4, 4).contiguous()
+    identity or a synthetic pan (translation along x plus a slow yaw).  The
+    size defaults to FRAMES x HEIGHT x WIDTH."""
+    frames, height, width = frames or FRAMES, height or HEIGHT, width or WIDTH
+    intr = torch.tensor([width, height, 0.0, 0.0]).expand(b, frames, 4).contiguous()
+    c2w = torch.eye(4).expand(b, frames, 4, 4).contiguous()
     if kind == "pan":
-        s = torch.linspace(0.0, 1.0, FRAMES)
+        s = torch.linspace(0.0, 1.0, frames)
         ang = 0.3 * s
         c2w[..., 0, 0] = c2w[..., 2, 2] = torch.cos(ang)
         c2w[..., 0, 2], c2w[..., 2, 0] = torch.sin(ang), -torch.sin(ang)
@@ -244,9 +287,53 @@ def camera(kind: str, b: int = 1):
     return intr, c2w
 
 
-def feature_shapes(chs, b=1):
-    h, w = HEIGHT // 8, WIDTH // 8
-    return [(b, FRAMES, h // 2 ** i, w // 2 ** i, c) for i, c in enumerate(chs)]
+def plucker(pipe, kind: str, frames=None, height=None, width=None):
+    """The Plücker video of ``camera(kind)`` on the pipeline's device."""
+    from synfmc_tpu_torch.geometry.plucker import plucker_embedding
+
+    height, width = height or HEIGHT, width or WIDTH
+    intr, c2w = camera(kind, frames=frames, height=height, width=width)
+    return plucker_embedding(intr.to(pipe.device), c2w.to(pipe.device), height, width)
+
+
+def objects(seed: int, frames: int, height: int, width: int):
+    """N_OBJECTS seeded object trajectories as the obj stage's dataset gives
+    them: (1, F, O, 12) camera-relative [R|t] rows (a yaw that turns, a
+    translation that drifts) and (1, F, O, H, W) Gaussian sphere masks
+    (obj.yaml use_sphere_mask: a filled circle times a Gaussian of sigma
+    radius / 2, 1 at the centre) whose centres slide across the frame."""
+    rng = np.random.default_rng(seed)
+    info = np.zeros((1, frames, N_OBJECTS, 3, 4), np.float32)
+    masks = np.zeros((1, frames, N_OBJECTS, height, width), np.float32)
+    yy, xx = np.mgrid[0:height, 0:width].astype(np.float32)
+    s = np.linspace(0.0, 1.0, frames)
+    for o in range(N_OBJECTS):
+        yaw = rng.uniform(-np.pi, np.pi) + rng.uniform(-0.5, 0.5) * s
+        info[0, :, o, 0, 0] = info[0, :, o, 2, 2] = np.cos(yaw)
+        info[0, :, o, 0, 2], info[0, :, o, 2, 0] = np.sin(yaw), -np.sin(yaw)
+        info[0, :, o, 1, 1] = 1.0
+        info[0, :, o, :, 3] = rng.uniform(-1, 1, 3) + np.outer(s, rng.uniform(-0.5, 0.5, 3))
+        c0, c1 = (rng.uniform([0.2 * width, 0.25 * height], [0.8 * width, 0.75 * height])
+                  for _ in range(2))
+        radius = int(rng.uniform(0.1, 0.2) * height)
+        for f in range(frames):
+            cx, cy = c0 + (c1 - c0) * s[f]
+            d = np.sqrt((xx - cx) ** 2 + (yy - cy) ** 2)
+            masks[0, f, o] = (d <= radius) * np.exp(-0.5 * (d / (radius / 2)) ** 2)
+    return info.reshape(1, frames, N_OBJECTS, 12), masks
+
+
+def object_traj(pipe, seed: int, frames=None, height=None, width=None):
+    """Traj features made the serving way: seeded objects ->
+    rasterize_traj_features -> build_adapter_inputs -> the ObjectAdapter
+    (FRAMES x HEIGHT x WIDTH by default)."""
+    from synfmc_tpu_torch.utils.traj_features import build_adapter_inputs
+
+    frames, height, width = frames or FRAMES, height or HEIGHT, width or WIDTH
+    info, masks = objects(seed, frames, height, width)
+    feats, mask = build_adapter_inputs(torch.from_numpy(info).to(pipe.device),
+                                       torch.from_numpy(masks).to(pipe.device))
+    return pipe.encode_traj(feats, mask, frames)
 
 
 # ---------------------------------------------------------------------------
@@ -324,28 +411,49 @@ class Recorder:
             setattr(mod, name, fn)
 
 
-def record_shapes(pipe, chs):
-    """One full-width UNet forward on the CFG pair, one pose-encoder call and
-    one VAE frame decode, recorded, to collect the shapes and arguments the
-    serving path gives each kernel."""
-    from synfmc_tpu_torch.geometry.plucker import plucker_embedding
-
+def record_shapes(pipe):
+    """Recorded, to collect the shapes and arguments the serving modes give
+    each kernel, by stage: the pose encoder, the ObjectAdapter, one
+    full-width UNet forward on the CFG pair (with DeepCache's tensor), one at
+    batch B on the cond half (a CFG-cache step), one shallow forward on the
+    pair (a DeepCache step), one VAE frame decode and one decode of
+    DECODE_CHUNK frames.  Checks each stage's launches against PER_STAGE."""
     with Recorder("pose") as rec:
-        dev, dt = pipe.device, pipe.unet.dtype
+        dev = pipe.device
         with torch.inference_mode():
-            intr, c2w = camera("pan")
-            pose = pipe.encode_pose(plucker_embedding(intr.to(dev), c2w.to(dev), HEIGHT, WIDTH))
+            pose = pipe.encode_pose(plucker(pipe, "pan"))
+            rec.stage = "adapter"
+            traj = object_traj(pipe, seed=0)
             rec.stage = "unet"
             lat = torch.randn(2, FRAMES, HEIGHT // 8, WIDTH // 8, 4, device=dev)
-            ctx = torch.randn(2, 77, 768, device=dev, dtype=dt)
+            ctx = pipe.encode_prompt("a turtle paddles through a coral reef")
+            t = torch.full((2,), 751, device=dev)
             pose2 = [torch.cat([p, p]) for p in pose]
-            traj = [torch.randn(s, device=dev, dtype=dt) for s in feature_shapes(chs, 2)]
-            pipe.unet(lat, torch.full((2,), 751, device=dev), ctx, pose_features=pose2,
-                      traj_features=traj)
+            traj2 = [torch.cat([torch.zeros_like(tr), tr]) for tr in traj]
+            _, deep = pipe.unet(lat, t, ctx, pose_features=pose2, traj_features=traj2,
+                                return_deep=True)
+            rec.stage = "unet_b"
+            pipe.unet(lat[1:], t[1:], ctx[1:], pose_features=pose, traj_features=traj)
+            rec.stage = "shallow"
+            pipe.unet(lat, t, ctx, pose_features=pose2, traj_features=traj2, deep_cache=deep)
             rec.stage = "vae"
             pipe.vae.decode(lat[:1, 0])
+            rec.stage = "vae_chunk"
+            pipe.vae.decode(lat[0, :DECODE_CHUNK])
         torch.cuda.synchronize()
-    return {k: rec.seen[k] for k in ("flash", "temporal", "group_norm")}
+    seen = {k: rec.seen[k] for k in ("flash", "temporal", "group_norm")}
+    for stage, want in PER_STAGE.items():
+        got = {k: sum(n for key, n in v.items() if key[0] == stage) for k, v in seen.items()}
+        if got != {k: want.get(k, 0) for k in seen}:
+            raise AssertionError(f"{stage}: launches {got} != {want}")
+    # the shallow forward's shapes are all the pair forward's: time them once
+    for kind, keys in seen.items():
+        shallow = [key for key in keys if key[0] == "shallow"]
+        if any(("unet",) + key[1:] not in keys for key in shallow):
+            raise AssertionError(f"{kind}: a shallow-forward shape the full forward lacks")
+        for key in shallow:
+            del keys[key]
+    return seen
 
 
 def kernel_case(kind, key, dtype, gen):
@@ -736,10 +844,10 @@ def time_gn_bwd(seen, rates):
 # ---------------------------------------------------------------------------
 
 
-def tiny_config(mixed_precision: bool):
+def tiny_config(mixed_precision: bool, path: str = CAM_YAML):
     from synfmc_tpu_torch.pipelines.factory import load_config
 
-    cfg = load_config(CAM_YAML)
+    cfg = load_config(path)
     cfg["model_overrides"] = TINY_OVERRIDES
     cfg["unet_additional_kwargs"]["motion_module_kwargs"]["num_attention_heads"] = 4
     cfg["pose_encoder_kwargs"]["temporal_attention_nhead"] = 4
@@ -747,43 +855,70 @@ def tiny_config(mixed_precision: bool):
     return cfg
 
 
+# Composition cases: (label, frames, height, width, objects?, pipeline
+# arguments).  The first is one OMC request at the serving size; the modes
+# run at 8 frames of 128x192, where K1 still takes level 0 (384 tokens); the
+# multidiff windows of 8 frames overlap by 4 (12 frames, within the pose
+# encoder's 16 positions) and decode 4 frames a call.
+COMPOSE_CASES = [
+    ("omc", FRAMES, HEIGHT, WIDTH, True, {}),
+    ("dpmpp", 8, 128, 192, True, dict(solver="dpmpp_2m")),
+    ("deepcache", 8, 128, 192, True, dict(deepcache_interval=2)),
+    ("cfgcache", 8, 128, 192, True, dict(cfg_cache_interval=2)),
+    ("turbo+dpmpp", 8, 128, 192, True,
+     dict(deepcache_interval=2, cfg_cache_interval=2, solver="dpmpp_2m")),
+    ("multidiff+chunked decode", 8, 128, 192, False,
+     dict(multidiff_total_steps=2, multidiff_overlaps=4, decode_chunk=DECODE_CHUNK)),
+]
+
+
 def compose():
-    from synfmc_tpu_torch.geometry.plucker import plucker_embedding
+    """The tiny obj-stage pipeline in fp32 on the GPU (kernels) and on the CPU
+    (plain versions) with the same weights and inputs, 3 steps (the OMC gate
+    closes at the last), in every case of COMPOSE_CASES: final latents within
+    LATENT_TOL, and the decoded frames too where the case decodes in chunks."""
     from synfmc_tpu_torch.pipelines.animation import decode_latents
     from synfmc_tpu_torch.pipelines.factory import build_pipeline
 
-    cfg = tiny_config(mixed_precision=False)
+    cfg = tiny_config(mixed_precision=False, path=OBJ_YAML)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cpu = build_pipeline(cfg, device="cpu", dtype=torch.float32, seed=0)
-    gpu = build_pipeline(cfg, device="cuda", dtype=torch.float32, seed=1)
-    for name in ("unet", "vae", "text_encoder", "pose_encoder"):
+    cpu = build_pipeline(cfg, stage="obj", device="cpu", dtype=torch.float32, seed=0)
+    gpu = build_pipeline(cfg, stage="obj", device="cuda", dtype=torch.float32, seed=1)
+    for name in ("unet", "vae", "text_encoder", "pose_encoder", "adapter"):
         getattr(gpu, name).load_state_dict(getattr(cpu, name).state_dict())
     rng = np.random.default_rng(7)
-    latents = torch.from_numpy(rng.normal(size=(1, FRAMES, HEIGHT // 8, WIDTH // 8, 4))
-                               .astype(np.float32))
-    traj = [torch.from_numpy(rng.normal(size=s).astype(np.float32) * 0.3)
-            for s in feature_shapes(TINY_OVERRIDES["block_out_channels"])]
-    intr, c2w = camera("pan")
-    out = {}
-    for name, pipe in (("gpu", gpu), ("cpu", cpu)):
-        dev = pipe.device
-        t0 = time.perf_counter()
-        lat = pipe(["a knight marches across a field"], latents=latents.to(dev),
-                   plucker=plucker_embedding(intr.to(dev), c2w.to(dev), HEIGHT, WIDTH),
-                   traj_features=[t.to(dev) for t in traj], num_inference_steps=2,
-                   guidance_scale=GUIDANCE, omcm_min_step=300, decode=False)
-        img = decode_latents(pipe.vae, lat)
-        out[name] = (lat.cpu(), img.cpu())
-        log(f"  {name}: {time.perf_counter() - t0:.1f} s")
-    lat_err = (out["gpu"][0] - out["cpu"][0]).abs().max().item()
-    img_err = (out["gpu"][1] - out["cpu"][1]).abs().max().item()
-    log(f"  latents max abs err {lat_err:.3e} (limit {LATENT_TOL}), images {img_err:.3e}")
-    if not lat_err < LATENT_TOL:
-        raise AssertionError(f"composition: latents differ by {lat_err}")
+    errors = {}
+    for label, frames, height, width, objs, kw in COMPOSE_CASES:
+        overlap = kw.get("multidiff_overlaps", 0)
+        total = kw.get("multidiff_total_steps", 1) * (frames - overlap) + overlap
+        latents = torch.from_numpy(rng.normal(size=(1, total, height // 8, width // 8, 4))
+                                   .astype(np.float32))
+        out = {}
+        for name, pipe in (("gpu", gpu), ("cpu", cpu)):
+            t0 = time.perf_counter()
+            traj = object_traj(pipe, 11, frames, height, width) if objs else None
+            lat = pipe(["a knight marches across a field"], video_length=frames, height=height,
+                       width=width, latents=latents.to(pipe.device),
+                       plucker=plucker(pipe, "pan", total, height, width), traj_features=traj,
+                       num_inference_steps=3, guidance_scale=GUIDANCE, omcm_min_step=300,
+                       decode=False, **{k: v for k, v in kw.items() if k != "decode_chunk"})
+            img = decode_latents(pipe.vae, lat, decode_chunk=kw.get("decode_chunk", 1))
+            out[name] = (lat.cpu(), img.cpu())
+            log(f"  {label} {name}: {time.perf_counter() - t0:.1f} s")
+        lat_err = (out["gpu"][0] - out["cpu"][0]).abs().max().item()
+        img_err = (out["gpu"][1] - out["cpu"][1]).abs().max().item()
+        chunked = "decode_chunk" in kw
+        log(f"  {label}: {total} frames {height}x{width}, latents max abs err {lat_err:.3e} "
+            f"(limit {LATENT_TOL}), frames {img_err:.3e}"
+            + (f" (limit {LATENT_TOL}, {kw['decode_chunk']} a call)" if chunked else ""))
+        if not lat_err < LATENT_TOL or (chunked and not img_err < LATENT_TOL):
+            raise AssertionError(f"composition {label}: latents differ by {lat_err}, "
+                                 f"frames by {img_err}")
+        errors[label] = (lat_err, img_err)
     del cpu, gpu
     torch.cuda.empty_cache()
-    return lat_err, img_err
+    return errors
 
 
 # ---------------------------------------------------------------------------
@@ -903,53 +1038,114 @@ def counters():
             "group_norm": fused_group_norm}
 
 
-def serve(pipe, chs):
-    from synfmc_tpu_torch.geometry.plucker import plucker_embedding
+def forward_plan(kw: dict) -> list[tuple[str, int]]:
+    """The UNet forwards a request of STEPS steps runs, in order, as (kind,
+    batch): every k-th step of a cache mode refreshes on the CFG pair; the
+    others run the shallow level (DeepCache) and/or the cond branch alone at
+    batch 1 (CFG-cache); multidiff runs the pair once a window."""
+    deep, cfg = kw.get("deepcache_interval", 1), kw.get("cfg_cache_interval", 1)
+    k = max(deep, cfg)
+    plan = []
+    for idx in range(STEPS):
+        if k > 1 and idx % k:
+            plan.append(("shallow" if deep > 1 else "full", 1 if cfg > 1 else 2))
+        else:
+            plan += [("full", 2)] * kw.get("multidiff_total_steps", 1)
+    return plan
 
-    requests = [("a knight marches across a field", "identity"),
-                ("a blue dragon soars, seen from behind", "pan")]
-    expect = {k: PER_FORWARD.get(k, 0) * STEPS + PER_REQUEST.get(k, 0)
-              + PER_FRAME.get(k, 0) * FRAMES for k in counters()}
-    dev, dt = pipe.device, pipe.unet.dtype
-    launches = Counter()
-    step_ms, clip_s = [], []
-    for i, (prompt, cam) in enumerate(requests):
-        gen = torch.Generator(device=dev).manual_seed(100 + i)
-        traj = [torch.randn(s, generator=gen, device=dev).to(dt) * 0.1
-                for s in feature_shapes(chs)]
-        intr, c2w = camera(cam)
-        events = []
 
-        def on_step(idx, t):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            events.append(ev)
+def expected_launches(kw: dict, camera_kind, frames: int) -> dict:
+    """Each kernel's launches in one request: its forwards' (PER_FORWARD or
+    PER_SHALLOW), the pose encoder's with a camera, and the decoder's per
+    call of k frames, k the largest divisor of the frames <= decode_chunk."""
+    k = min(kw.get("decode_chunk", 1), frames)
+    while frames % k:
+        k -= 1
+    out = Counter()
+    for kind, _ in forward_plan(kw):
+        out.update(PER_FORWARD if kind == "full" else PER_SHALLOW)
+    if camera_kind is not None:
+        out.update(PER_REQUEST)
+    for _ in range(frames // k):
+        out.update(PER_DECODE)
+    return {name: out[name] for name in counters()}
 
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        for fn in counters().values():
-            fn.launches = 0
+
+def serve_once(pipe, i: int, request) -> tuple[dict, dict]:
+    """REQUESTS[i] at full width through AnimationPipeline.__call__: the
+    output's shape, finite values in [0, 1], the UNet forwards by kind and
+    batch against ``forward_plan`` and each kernel's launches exactly.
+    Returns the launches and the timings: ms per denoise step (CUDA events
+    from the first forward on), s/clip, K1-K3 launches per step, peak."""
+    label, prompt, cam, objs, kw = request
+    dev = pipe.device
+    overlap = kw.get("multidiff_overlaps", 0)
+    frames = kw.get("multidiff_total_steps", 1) * (FRAMES - overlap) + overlap
+    gen = torch.Generator(device=dev).manual_seed(100 + i)
+    forwards, events, step_launches = [], [], []
+
+    def on_step(idx, t):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        step_launches.append(sum(fn.launches for fn in counters().values()))
+
+    def pre_hook(module, args, kwargs):
+        if not forwards:  # the loop starts with its first forward
+            on_step(None, None)
+        forwards.append(("shallow" if kwargs.get("deep_cache") is not None else "full",
+                         args[0].shape[0]))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters().values():
+        fn.launches = 0
+    hook = pipe.unet.register_forward_pre_hook(pre_hook, with_kwargs=True)
+    try:
         t0 = time.perf_counter()
-        video = pipe(prompt, video_length=FRAMES, height=HEIGHT, width=WIDTH,
-                     num_inference_steps=STEPS, guidance_scale=GUIDANCE, generator=gen,
-                     plucker=plucker_embedding(intr.to(dev), c2w.to(dev), HEIGHT, WIDTH),
-                     traj_features=traj, omcm_min_step=OMCM, on_step=on_step)
+        with torch.inference_mode():
+            traj = object_traj(pipe, seed=200 + i) if objs else None
+            video = pipe(prompt, video_length=FRAMES, height=HEIGHT, width=WIDTH,
+                         num_inference_steps=STEPS, guidance_scale=GUIDANCE, generator=gen,
+                         plucker=plucker(pipe, cam, frames) if cam else None,
+                         traj_features=traj, omcm_min_step=OMCM, on_step=on_step, **kw)
         torch.cuda.synchronize()
-        clip_s.append(time.perf_counter() - t0)
-        got = {k: fn.launches for k, fn in counters().items()}
-        if got != expect:
-            raise AssertionError(f"request {i}: launches {got} != expected {expect}")
-        launches.update(got)
-        if tuple(video.shape) != (1, FRAMES, HEIGHT, WIDTH, 3):
-            raise AssertionError(f"request {i}: output shape {tuple(video.shape)}")
-        if not bool(torch.isfinite(video).all()) or video.min() < 0 or video.max() > 1:
-            raise AssertionError(f"request {i}: output not finite in [0, 1]")
-        steps = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
-        step_ms += steps
-        log(f"  request {i} ({cam}): {clip_s[-1]:.2f} s/clip, steps {['%.1f' % s for s in steps]} ms, "
-            f"launches {got}, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-            f"mean pixel {video.float().mean().item():.4f}")
-    return launches, statistics.median(step_ms), clip_s, torch.cuda.max_memory_allocated()
+        clip_s = time.perf_counter() - t0
+    finally:
+        hook.remove()
+    got = {k: fn.launches for k, fn in counters().items()}
+    want = expected_launches(kw, cam, frames)
+    if forwards != forward_plan(kw):
+        raise AssertionError(f"request {label}: UNet forwards {forwards} != {forward_plan(kw)}")
+    if got != want:
+        raise AssertionError(f"request {label}: launches {got} != expected {want}")
+    if tuple(video.shape) != (1, frames, HEIGHT, WIDTH, 3):
+        raise AssertionError(f"request {label}: output shape {tuple(video.shape)}")
+    if not bool(torch.isfinite(video).all()) or video.min() < 0 or video.max() > 1:
+        raise AssertionError(f"request {label}: output not finite in [0, 1]")
+    steps = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    return got, dict(ms_per_step=statistics.mean(steps), steps_ms=steps, clip_s=clip_s,
+                     launches_per_step=[b - a for a, b in zip(step_launches, step_launches[1:])],
+                     peak_gib=torch.cuda.max_memory_allocated() / 2**30, forwards=forwards,
+                     frames=frames, mean_pixel=video.float().mean().item())
+
+
+def serve(pipe, card: str):
+    """Each of REQUESTS twice (the first run of a mode meets its shapes for
+    the first time); the second run's timings are the mode's."""
+    launches, per_mode = Counter(), {}
+    for i, request in enumerate(REQUESTS):
+        for run in ("first", "second"):
+            got, m = serve_once(pipe, i, request)
+            launches.update(got)
+            log(f"  request {request[0]} ({run} run): {m['frames']} frames, "
+                f"{m['ms_per_step']:.2f} ms per denoise step (steps "
+                f"{['%.1f' % x for x in m['steps_ms']]}), {m['clip_s']:.2f} s/clip, K1-K3 "
+                f"launches per step {m['launches_per_step']}, forwards {m['forwards']}, "
+                f"launches {got}, peak {m['peak_gib']:.2f} GiB, mean pixel "
+                f"{m['mean_pixel']:.4f}; {card}")
+        per_mode[request[0]] = m
+    return launches, per_mode
 
 
 # ---------------------------------------------------------------------------
@@ -1080,32 +1276,35 @@ def device_spans(prof, per: int):
             {k: round(v, 3) for k, v in families.most_common()})
 
 
-def profile_loop(pipe, chs) -> dict:
-    """One request's denoise loop (STEPS CFG steps), once untraced and once
-    under torch.profiler with CUDA activity only: device time per step by
-    kernel family, and the device's idle share over the traced loop (1 - the
-    union of device intervals over the span from the first one's start to the
-    last one's end).  The tracer adds host time per launch, so the traced
-    idle share is an upper bound; the untraced loop's step time is beside it."""
+def profile_loop(pipe, request) -> dict:
+    """One request's denoise loop (STEPS steps) in its mode, once untraced and
+    once under torch.profiler with CUDA activity only: device time per step
+    by kernel family, and the device's idle share over the traced loop (1 -
+    the union of device intervals over the span from the first one's start
+    to the last one's end).  The tracer adds host time per launch, so the
+    traced idle share is an upper bound; the untraced loop's step time is
+    beside it."""
     from torch.profiler import ProfilerActivity, profile
 
-    from synfmc_tpu_torch.geometry.plucker import plucker_embedding
     from synfmc_tpu_torch.pipelines.animation import denoise_loop
 
-    dev, dt = pipe.device, pipe.unet.dtype
+    label, prompt, cam, objs, kw = request
+    kw = {k: v for k, v in kw.items() if k != "decode_chunk"}
+    overlap = kw.get("multidiff_overlaps", 0)
+    frames = kw.get("multidiff_total_steps", 1) * (FRAMES - overlap) + overlap
+    dev = pipe.device
     gen = torch.Generator(device=dev).manual_seed(7)
-    intr, c2w = camera("pan")
-    context = pipe.encode_prompt("a knight marches across a field")
-    pose = pipe.encode_pose(plucker_embedding(intr.to(dev), c2w.to(dev), HEIGHT, WIDTH))
-    traj = [torch.randn(s, generator=gen, device=dev).to(dt) * 0.1 for s in feature_shapes(chs)]
-    lat = torch.randn(1, FRAMES, HEIGHT // 8, WIDTH // 8, 4, generator=gen, device=dev)
+    context = pipe.encode_prompt(prompt)
+    pose = pipe.encode_pose(plucker(pipe, cam, frames)) if cam else None
+    traj = object_traj(pipe, seed=7) if objs else None
+    lat = torch.randn(1, frames, HEIGHT // 8, WIDTH // 8, 4, generator=gen, device=dev)
 
     def run() -> float:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         denoise_loop(pipe.unet, pipe.schedule, lat, context, pose_features=pose,
                      traj_features=traj, num_inference_steps=STEPS, guidance_scale=GUIDANCE,
-                     omcm_min_step=OMCM)
+                     omcm_min_step=OMCM, window_length=FRAMES, **kw)
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3 / STEPS
 
@@ -1114,14 +1313,15 @@ def profile_loop(pipe, chs) -> dict:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         traced_ms = run()
     busy_ms, span_ms, n_kernels, families = device_spans(prof, STEPS)
-    out = {"steps": STEPS, "untraced_ms_per_step": untraced_ms, "traced_ms_per_step": traced_ms,
-           "device_busy_ms_per_step": busy_ms, "kernels_per_step": n_kernels,
-           "idle_share_traced": 1 - busy_ms / span_ms,
+    out = {"request": label, "steps": STEPS, "untraced_ms_per_step": untraced_ms,
+           "traced_ms_per_step": traced_ms, "device_busy_ms_per_step": busy_ms,
+           "kernels_per_step": n_kernels, "idle_share_traced": 1 - busy_ms / span_ms,
            "idle_share_estimate_untraced": 1 - busy_ms / untraced_ms,
            "families_ms_per_step": families}
-    log(f"[profile] denoise loop of one request: {json.dumps(out)}")
-    log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25,
-                                  max_name_column_width=60))
+    log(f"[profile] denoise loop of request {label}: {json.dumps(out)}")
+    if not kw:
+        log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25,
+                                      max_name_column_width=60))
     return out
 
 
@@ -1217,35 +1417,37 @@ def main() -> int:
     log(f"[build] {len(logs)} libraries in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    pipe = build_pipeline(CAM_YAML, seed=0)
-    chs = pipe.unet.block_out_channels
-    log(f"[main] flagship cam-stage pipeline built in {time.perf_counter() - t0:.1f} s, "
-        f"UNet {sum(p.numel() for p in pipe.unet.parameters()) / 1e6:.0f} M params, {pipe.unet.dtype}")
+    pipe = build_pipeline(OBJ_YAML, stage="obj", seed=0)
+    log(f"[main] flagship obj-stage pipeline built in {time.perf_counter() - t0:.1f} s, "
+        f"UNet {sum(p.numel() for p in pipe.unet.parameters()) / 1e6:.0f} M params, "
+        f"ObjectAdapter {sum(p.numel() for p in pipe.adapter.parameters()) / 1e6:.0f} M, "
+        f"{pipe.unet.dtype}")
 
     gn_silu_range()
-    log("[kernels] shapes recorded from one full-width forward, and K4's stand-in")
-    seen = record_shapes(pipe, chs)
-    per_forward = {k: sum(n for key, n in v.items() if key[0] == "unet") for k, v in seen.items()}
-    if per_forward != PER_FORWARD:
-        raise AssertionError(f"per-forward launches {per_forward} != {PER_FORWARD}")
+    log("[kernels] shapes recorded from one full-width forward on the pair, one at batch 1, a "
+        "shallow forward, the pose encoder, the adapter, a frame decode and a "
+        f"{DECODE_CHUNK}-frame decode; and K4's stand-in")
+    seen = record_shapes(pipe)
     seen["flash"][K47_KEY] = 0
     traced = set()
     results = check_kernels(seen, rates, traced)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    log("[compose] tiny width, 16 frames at 256x384, 2 DDIM steps, fp32: GPU vs CPU")
+    log("[compose] tiny obj stage, 3 steps, fp32: GPU vs CPU, one OMC request and each mode")
     compose()
 
     log("[train-compose] tiny width, 16 frames at 256x384, 2 stage-2 steps, fp32: GPU vs CPU")
     train_compose()
 
-    log(f"[main] two requests: {FRAMES} frames {HEIGHT}x{WIDTH}, {STEPS} DDIM steps, guidance {GUIDANCE}")
-    launches, step_ms, clip_s, peak = serve(pipe, chs)
-    log(f"[main] {step_ms:.2f} ms per CFG denoise step (median), "
-        f"{statistics.mean(clip_s):.2f} s per clip, peak {peak / 2**30:.2f} GiB")
+    log(f"[main] {len(REQUESTS)} requests: {FRAMES}-frame windows {HEIGHT}x{WIDTH}, {STEPS} "
+        f"steps, guidance {GUIDANCE}, OMC gate {OMCM}")
+    launches, per_mode = serve(pipe, card[0] if card else "")
+    log(f"[main] per mode: {json.dumps({k: {m: v[m] for m in ('ms_per_step', 'clip_s', 'launches_per_step', 'peak_gib')} for k, v in per_mode.items()})}; "
+        f"{card[0] if card else ''}")
     if profile:
-        profile_loop(pipe, chs)
+        for request in REQUESTS:
+            profile_loop(pipe, request)
     del pipe
     torch.cuda.empty_cache()
 

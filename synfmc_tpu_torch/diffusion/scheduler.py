@@ -1,8 +1,9 @@
-"""Noise schedule: DDPM training utilities and deterministic DDIM sampling
-(eta = 0, epsilon prediction).
+"""Noise schedule: DDPM training utilities, deterministic DDIM sampling
+(eta = 0, epsilon prediction) and DPM-Solver++(2M) over the same timesteps.
 
-The alpha table is float64 on the host and enters the update as fp32, like
-the JAX package; eps and x are fp32 in the update.
+The alpha table and the solver's coefficient tables are float64 on the host
+and enter the update as fp32, like the JAX package; eps and x are fp32 in the
+update.
 """
 
 from __future__ import annotations
@@ -60,6 +61,55 @@ class DiffusionSchedule:
         step_ratio = self.num_train_timesteps // num_inference_steps
         ts = (np.arange(num_inference_steps) * step_ratio).round()[::-1].astype(np.int64)
         return ts + self.steps_offset
+
+    def dpmpp_2m_tables(self, num_inference_steps: int) -> dict:
+        """Per-step coefficients of deterministic DPM-Solver++(2M) (data
+        prediction) on the DDIM timestep table, float64:
+
+            m_i    = c_to_x0_x[i] x_i + c_to_x0_eps[i] eps_i
+            x_i+1  = c_sample[i] x_i + c_d0[i] m_i + c_d1[i] (m_i - m_i-1)
+
+        with alpha = sqrt(abar), sigma = sqrt(1 - abar), lambda =
+        log(alpha / sigma), h_i = lambda_i+1 - lambda_i, c_sample =
+        sigma_i+1 / sigma_i, c_d0 = -alpha_i+1 (e^-h_i - 1), c_d1 = c_d0 h_i /
+        (2 h_i-1).  c_d1 is 0 at the first and the last step; the last node
+        has sigma 0 (alpha 1), so the last update returns m_i."""
+        ts = self.ddim_timesteps(num_inference_steps)
+        abar = self.alphas_cumprod
+        prev_ts = ts - self.num_train_timesteps // num_inference_steps
+        alpha = np.sqrt(abar[ts])
+        sigma = np.sqrt(1.0 - abar[ts])
+        lam = np.log(alpha) - np.log(sigma)
+        abar_next = np.where(prev_ts >= 0, abar[np.maximum(prev_ts, 0)], 1.0)
+        alpha_next = np.sqrt(abar_next)
+        sigma_next = np.sqrt(1.0 - abar_next)
+        with np.errstate(divide="ignore"):
+            lam_next = np.log(alpha_next) - np.log(sigma_next)  # +inf where sigma is 0
+        h = lam_next - lam
+        with np.errstate(over="ignore"):
+            phi = np.expm1(-h)  # -1 exactly on the final step
+        c_d0 = -alpha_next * phi
+        n = len(ts)
+        c_d1 = np.zeros(n)
+        if n > 2:
+            h_prev = lam[1:] - lam[:-1]
+            c_d1[1:n - 1] = 0.5 * c_d0[1:n - 1] * h[1:n - 1] / h_prev[:n - 2]
+        return {"c_to_x0_x": 1.0 / alpha, "c_to_x0_eps": -sigma / alpha,
+                "c_sample": sigma_next / sigma, "c_d0": c_d0, "c_d1": c_d1}
+
+    def dpmpp_2m_step(self, model_eps: torch.Tensor, idx: int, sample: torch.Tensor,
+                      m_prev: torch.Tensor, tables: dict) -> tuple[torch.Tensor, torch.Tensor]:
+        """One DPM-Solver++(2M) update at step ``idx``: (x_next in the
+        sample's type, m_i in fp32), m_i carried as the next ``m_prev``."""
+        c = {k: torch.tensor(v[idx], dtype=torch.float32, device=sample.device)
+             for k, v in tables.items()}
+        eps32 = model_eps.float()
+        x32 = sample.float()
+        m0 = c["c_to_x0_x"] * x32 + c["c_to_x0_eps"] * eps32
+        if self.clip_sample:
+            m0 = m0.clamp(-1.0, 1.0)
+        x_next = c["c_sample"] * x32 + c["c_d0"] * m0 + c["c_d1"] * (m0 - m_prev)
+        return x_next.to(sample.dtype), m0
 
     def ddim_step(self, model_eps: torch.Tensor, t: int, sample: torch.Tensor,
                   num_inference_steps: int) -> torch.Tensor:

@@ -88,11 +88,21 @@ def pose_encoder_path_to_torch(parts: tuple[str, ...]) -> str:
     return _name(_apply_rules(path, rules), leaf)
 
 
+def adapter_path_to_torch(parts: tuple[str, ...]) -> str:
+    leaf, path = parts[-1], "/".join(parts[:-1])
+    rules = [
+        (r"^zero_conv_out_(\d+)", r"zero_conv_out_list.\1"),
+        _CONTAINER_RULE,
+    ]
+    return _name(_apply_rules(path, rules), leaf)
+
+
 CONVERTERS: dict[str, Callable[[tuple[str, ...]], str]] = {
     "unet": unet_path_to_torch,
     "vae": vae_path_to_torch,
     "clip_text": clip_path_to_torch,
     "pose_encoder": pose_encoder_path_to_torch,
+    "adapter": adapter_path_to_torch,
 }
 
 

@@ -1,9 +1,8 @@
 """The inflated 3D UNet with camera (pose) and object (traj) conditioning.
 
-The full path of synfmc_tpu/models/unet3d.py:UNet3D (DeepCache's shallow
-path is not ported) with the SD1.5 constants: 4 latent channels, 2 layers
-per block, GroupNorm(32).  Quirk preserved: the plain 4th down block never
-receives traj features.  The decoder's motion modules take the pose features
+synfmc_tpu/models/unet3d.py:UNet3D, with DeepCache's shallow step, and the
+SD1.5 constants: 4 latent channels, 2 layers per block, GroupNorm(32).
+Quirk preserved: the plain 4th down block never receives traj features.  The decoder's motion modules take the pose features
 too.  ``conv_norm_out`` uses eps 1e-5; resnet, transformer and motion GNs
 use 1e-6.  Video layout (B, F, H, W, C).
 """
@@ -121,9 +120,15 @@ class UNet3D(nn.Module):
 
     def forward(self, sample, timesteps, encoder_hidden_states,
                 pose_features: Optional[Sequence[torch.Tensor]] = None,
-                traj_features: Optional[Sequence[torch.Tensor]] = None):
+                traj_features: Optional[Sequence[torch.Tensor]] = None,
+                deep_cache: Optional[torch.Tensor] = None, return_deep: bool = False):
         """sample (B, F, H, W, 4); timesteps (B,) or scalar; context (B, 77, X);
-        pose/traj features: lists of 4 (B, F, H/2^i, W/2^i, C_i).  Returns eps."""
+        pose/traj features: lists of 4 (B, F, H/2^i, W/2^i, C_i).  Returns eps,
+        or (eps, deep) with ``return_deep``: deep is up_blocks[2]'s output
+        (B, F, H, W, C_1), DeepCache's cache point.  Given a ``deep_cache``,
+        only the shallow level runs (conv_in, down_blocks[0] without its
+        downsampler, up_blocks[3] on the cache and the level's skips,
+        conv_norm_out, conv_out)."""
         n = len(self.block_out_channels)
         b, f = sample.shape[:2]
         dtype = self.dtype
@@ -136,6 +141,18 @@ class UNet3D(nn.Module):
         ctx_rep = encoder_hidden_states.to(dtype).repeat_interleave(f, dim=0)
 
         x = unfold(self.conv_in(fold(sample.to(dtype))), f)
+        if deep_cache is not None:
+            if n != 4:
+                raise ValueError("deep_cache needs the 4-level SD1.5 topology")
+            _, outs = self.down_blocks[0](x, temb_rep, ctx_rep, pose_feature=pose_features[0],
+                                          traj_feature=traj_features[0], run_downsample=False)
+            skips = [x] + outs
+            x = self.up_blocks[3](deep_cache.to(dtype), skips, temb_rep, ctx_rep,
+                                  pose_feature=pose_features[0])
+            assert not skips, f"{len(skips)} unconsumed skip connections"
+            eps = unfold(self.conv_out(self.conv_norm_out(fold(x))), f)
+            return (eps, deep_cache) if return_deep else eps
+
         skips = [x]
         for i, blk in enumerate(self.down_blocks):
             if isinstance(blk, CrossAttnDownBlock3D):
@@ -147,16 +164,19 @@ class UNet3D(nn.Module):
 
         x = self.mid_block(x, temb_rep, ctx_rep, pose_feature=pose_features[-1])
 
+        deep = None
         for i, blk in enumerate(self.up_blocks):
             pose = pose_features[-(i + 1)]
             if isinstance(blk, CrossAttnUpBlock3D):
                 x = blk(x, skips, temb_rep, ctx_rep, pose_feature=pose)
             else:
                 x = blk(x, skips, temb_rep, pose_feature=pose)
+            if i == n - 2:
+                deep = x
         assert not skips, f"{len(skips)} unconsumed skip connections"
 
-        h = self.conv_out(self.conv_norm_out(fold(x)))
-        return unfold(h, f)
+        eps = unfold(self.conv_out(self.conv_norm_out(fold(x))), f)
+        return (eps, deep) if return_deep else eps
 
 
 def unet_config_from_yaml(unet_additional_kwargs: dict | None, lora_rank: int = 0,

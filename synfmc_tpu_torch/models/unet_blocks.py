@@ -59,7 +59,10 @@ class CrossAttnDownBlock3D(nn.Module):
         self.downsamplers = nn.ModuleList(
             [Downsample2D(out_channels, out_channels)]) if add_downsample else None
 
-    def forward(self, x, temb_rep, ctx_rep, pose_feature=None, traj_feature=None):
+    def forward(self, x, temb_rep, ctx_rep, pose_feature=None, traj_feature=None,
+                run_downsample: bool = True):
+        """``run_downsample=False`` (DeepCache's shallow step) skips the
+        downsampler, whose output feeds only the deeper levels."""
         f = x.shape[1]
         outputs = []
         for i, (res, attn) in enumerate(zip(self.resnets, self.attentions)):
@@ -70,7 +73,7 @@ class CrossAttnDownBlock3D(nn.Module):
         if traj_feature is not None:
             x = x + traj_feature.to(x.dtype)
             outputs[-1] = x
-        if self.downsamplers is not None:
+        if self.downsamplers is not None and run_downsample:
             x = unfold(self.downsamplers[0](fold(x)), f)
             outputs.append(x)
         return x, outputs

@@ -1,8 +1,9 @@
 """Config -> AnimationPipeline with seeded random weights.
 
-Builds the camera-conditioned (cam stage) pipeline from a reference-format
-YAML config (configs/cam.yaml keys: unet_additional_kwargs, lora_rank,
-lora_scale, attention_processor_kwargs, pose_encoder_kwargs,
+Builds the camera-conditioned (cam stage) or camera- and object-conditioned
+(obj stage) pipeline from a reference-format YAML config (configs/cam.yaml,
+configs/obj.yaml keys: unet_additional_kwargs, lora_rank, lora_scale,
+attention_processor_kwargs, pose_encoder_kwargs, omcm_config,
 noise_scheduler_kwargs, mixed_precision_training) plus the optional
 ``model_overrides`` that shrink every module for tests.  Real checkpoints
 load afterwards through ``interop.torch_port.load_jax_params`` or
@@ -19,6 +20,7 @@ import torch
 from synfmc_tpu_torch.data.tokenizer import HashTokenizer
 from synfmc_tpu_torch.device import resolve_device
 from synfmc_tpu_torch.diffusion.scheduler import DiffusionSchedule
+from synfmc_tpu_torch.models.adapter import ObjectAdapter
 from synfmc_tpu_torch.models.clip_text import CLIPTextModel
 from synfmc_tpu_torch.models.pose_encoder import CameraPoseEncoder
 from synfmc_tpu_torch.models.unet3d import UNet3D, unet_config_from_yaml
@@ -26,6 +28,7 @@ from synfmc_tpu_torch.models.vae import AutoencoderKL
 from synfmc_tpu_torch.pipelines.animation import AnimationPipeline
 
 SD15_TEXT = dict(vocab_size=49408, hidden_size=768, num_layers=12, num_heads=12)
+STAGES = ("cam", "obj")
 
 
 def load_config(config) -> dict:
@@ -44,8 +47,11 @@ def _attn_block_indices(v) -> tuple:
     return tuple(int(x) for x in str(v).split(","))
 
 
-def build_models(config: dict) -> dict:
-    """Cam-stage modules (unet, vae, text, pose_encoder) from a config dict."""
+def build_models(config: dict, stage: str = "cam") -> dict:
+    """The stage's modules from a config dict: unet, vae, text, pose_encoder,
+    and for the obj stage the ObjectAdapter of ``omcm_config.params``."""
+    if stage not in STAGES:
+        raise ValueError(f"unknown stage {stage!r} (want one of {STAGES})")
     ov = dict(config.get("model_overrides") or {})
     chs = tuple(ov.get("block_out_channels", (320, 640, 1280, 1280)))
     xdim = int(ov.get("cross_attention_dim", 768))
@@ -79,15 +85,24 @@ def build_models(config: dict) -> dict:
         temporal_attention_nhead=int(pk.get("temporal_attention_nhead", 8)),
         temporal_pe_max_len=int(pk.get("temporal_position_encoding_max_len", 16)),
     )
-    return {"unet": unet, "vae": vae, "text": text, "pose_encoder": pose}
+    models = {"unet": unet, "vae": vae, "text": text, "pose_encoder": pose}
+    if stage == "obj":
+        ok = dict((config.get("omcm_config") or {}).get("params") or {})
+        models["adapter"] = ObjectAdapter(
+            channels=tuple(ov.get("pose_channels", chs)),
+            nums_rb=int(ok.get("nums_rb", 2)),
+            use_pre_zero_conv=bool(ok.get("use_pre_zero_conv", True)),
+            use_post_zero_conv=bool(ok.get("use_post_zero_conv", True)),
+        )
+    return models
 
 
 @torch.no_grad()
 def init_random_(module: torch.nn.Module, generator: torch.Generator) -> torch.nn.Module:
     """Seeded random weights: matrices and conv kernels N(0, 1/fan_in), norm
     scales 1, biases 0, token embeddings N(0, 1), position embeddings N(0, 0.01).
-    LoRA and pose-merge projections get random (not zero) weights, so the
-    conditioning paths change the output."""
+    LoRA and pose-merge projections and the adapter's zero convs get random
+    (not zero) weights, so the conditioning paths change the output."""
     for name, p in module.named_parameters():
         if p.dim() == 1:
             p.fill_(1.0 if name.endswith("weight") else 0.0)
@@ -103,9 +118,10 @@ def init_random_(module: torch.nn.Module, generator: torch.Generator) -> torch.n
     return module
 
 
-def build_pipeline(config, *, device=None, dtype: Optional[torch.dtype] = None,
-                   seed: int = 42) -> AnimationPipeline:
-    """Cam-stage AnimationPipeline with random weights made from ``seed``.
+def build_pipeline(config, *, stage: str = "cam", device=None,
+                   dtype: Optional[torch.dtype] = None, seed: int = 42) -> AnimationPipeline:
+    """The ``stage``'s ("cam" or "obj") AnimationPipeline with random weights
+    made from ``seed``.
 
     ``device`` defaults to ``cuda`` (raises without a GPU); ``dtype`` defaults
     to bf16 when the config sets ``mixed_precision_training`` (the default),
@@ -115,14 +131,14 @@ def build_pipeline(config, *, device=None, dtype: Optional[torch.dtype] = None,
     if dtype is None:
         dtype = torch.bfloat16 if config.get("mixed_precision_training", True) else torch.float32
     with torch.device(dev):
-        models = build_models(config)
+        models = build_models(config, stage)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    for name in ("unet", "vae", "text", "pose_encoder"):
-        init_random_(models[name], gen)
-        models[name].to(dtype=dtype, memory_format=torch.channels_last)
+    for module in models.values():
+        init_random_(module, gen)
+        module.to(dtype=dtype, memory_format=torch.channels_last)
     return AnimationPipeline(
         unet=models["unet"], vae=models["vae"], text_encoder=models["text"],
         tokenizer=HashTokenizer(),
         schedule=DiffusionSchedule.from_config(**(config.get("noise_scheduler_kwargs") or {})),
-        pose_encoder=models["pose_encoder"], device=dev,
+        pose_encoder=models["pose_encoder"], adapter=models.get("adapter"), device=dev,
     )

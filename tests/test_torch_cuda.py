@@ -417,3 +417,102 @@ def test_group_norm_wide_slab_runs_plain(gen):
         assert fused_group_norm.launches == before + (c <= 6144)
         want = group_norm_plain(x.float(), w.float(), b.float(), 32, 1e-6, "silu")
         assert_close(got, want, torch.bfloat16)
+
+
+@pytest.fixture(scope="module")
+def obj_pipes():
+    """The tiny obj-stage pipeline in fp32 on the CPU and, with the same
+    weights, on the GPU (TF32 off), at 8 frames of 128x192: K1 takes level 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from chip_smoke import OBJ_YAML, tiny_config
+    from synfmc_tpu_torch.pipelines.factory import build_pipeline
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = tiny_config(mixed_precision=False, path=OBJ_YAML)
+    cpu = build_pipeline(cfg, stage="obj", device="cpu", seed=0)
+    gpu = build_pipeline(cfg, stage="obj", device="cuda", seed=1)
+    for name in ("unet", "vae", "text_encoder", "pose_encoder", "adapter"):
+        getattr(gpu, name).load_state_dict(getattr(cpu, name).state_dict())
+    return cpu, gpu
+
+
+def _unet_inputs(pipe, frames=8, height=128, width=192):
+    """A CFG pair's UNet inputs on the pipeline's device, the same on both
+    devices: latents, timesteps, context, pose and (uncond-zeroed) traj
+    features made through the adapter."""
+    from chip_smoke import object_traj, plucker
+
+    gen = torch.Generator().manual_seed(3)
+    lat = torch.randn(2, frames, height // 8, width // 8, 4, generator=gen).to(pipe.device)
+    ctx = pipe.encode_prompt("a yellow bird hops along the road")
+    pose = pipe.encode_pose(plucker(pipe, "pan", frames, height, width))
+    traj = object_traj(pipe, 5, frames, height, width)
+    t = torch.full((2,), 751, device=pipe.device)
+    return lat, t, ctx, pose, traj
+
+
+def _on_both(obj_pipes, fn):
+    """fn(pipe, inputs) on the CPU (plain versions) and the GPU (kernels):
+    the outputs, and each kernel's launches on the GPU run."""
+    from chip_smoke import counters
+
+    out = {}
+    for pipe in obj_pipes:
+        with torch.inference_mode():
+            inputs = _unet_inputs(pipe)
+            before = {k: c.launches for k, c in counters().items()}
+            got = fn(pipe, *inputs)
+            launched = {k: c.launches - before[k] for k, c in counters().items()}
+        out[pipe.device.type] = (got.cpu() if torch.is_tensor(got) else got, launched)
+    return out
+
+
+def test_batch_b_forward_matches_cpu(obj_pipes):
+    """A CFG-cache step's forward: the cond half alone at batch 1."""
+    def fn(pipe, lat, t, ctx, pose, traj):
+        return pipe.unet(lat[1:], t[1:], ctx[1:], pose_features=pose, traj_features=traj)
+
+    out = _on_both(obj_pipes, fn)
+    assert out["cuda"][1]["flash"] > 0 and out["cuda"][1]["group_norm"] > 0
+    assert (out["cuda"][0] - out["cpu"][0]).abs().max().item() < 1e-3
+
+
+@pytest.mark.parametrize("batch", [2, 1], ids=["pair", "turbo"])
+def test_shallow_forward_matches_cpu(obj_pipes, batch):
+    """DeepCache's shallow forward on the pair, and at batch 1 with the cond
+    half of the cache (turbo), on each device's own recorded cache."""
+    from chip_smoke import PER_SHALLOW, counters
+
+    def fn(pipe, lat, t, ctx, pose, traj):
+        pose2 = [torch.cat([p, p]) for p in pose]
+        traj2 = [torch.cat([torch.zeros_like(tr), tr]) for tr in traj]
+        _, deep = pipe.unet(lat, t, ctx, pose_features=pose2, traj_features=traj2,
+                            return_deep=True)
+        before = {k: c.launches for k, c in counters().items()}
+        if batch == 2:
+            eps = pipe.unet(lat, t, ctx, pose_features=pose2, traj_features=traj2,
+                            deep_cache=deep)
+        else:
+            eps = pipe.unet(lat[1:], t[1:], ctx[1:], pose_features=pose, traj_features=traj,
+                            deep_cache=deep[1:])
+        fn.shallow = {k: c.launches - before[k] for k, c in counters().items()}
+        return eps
+
+    out = _on_both(obj_pipes, fn)  # the GPU runs last: fn.shallow holds its launches
+    assert {k: fn.shallow[k] for k in PER_SHALLOW} == PER_SHALLOW
+    assert (out["cuda"][0] - out["cpu"][0]).abs().max().item() < 1e-3
+
+
+def test_chunked_decode_matches_cpu(obj_pipes):
+    """8 latent frames decoded 4 a call: one K3 launch per GroupNorm a call."""
+    from chip_smoke import PER_DECODE
+    from synfmc_tpu_torch.pipelines.animation import decode_latents
+
+    def fn(pipe, lat, *_):
+        return decode_latents(pipe.vae, lat[:1], decode_chunk=4)
+
+    out = _on_both(obj_pipes, fn)
+    assert out["cuda"][1]["group_norm"] == 2 * PER_DECODE["group_norm"]
+    assert (out["cuda"][0] - out["cpu"][0]).abs().max().item() < 1e-3

@@ -139,13 +139,24 @@ def test_build_models_matches_jax_structure(slice_case):
         load_jax_params(models[name], params[key], key)  # strict=True
 
 
-def test_unsupported_modes_raise():
-    pipe = build_pipeline(tiny_config(), device="cpu")
-    lat = torch.zeros(1, 2, 8, 8, 4)
-    for kw in ({"multidiff_total_steps": 2}, {"deepcache_interval": 2},
-               {"cfg_cache_interval": 2}, {"solver": "dpmpp_2m"}):
-        with pytest.raises(NotImplementedError):
-            pipe("x", video_length=2, height=64, width=64, latents=lat, **kw)
+@pytest.fixture(scope="module")
+def tiny_pipe():
+    return build_pipeline(tiny_config(), device="cpu")
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(deepcache_interval=2, cfg_cache_interval=3), "equal intervals"),
+    (dict(deepcache_interval=2, multidiff_total_steps=2, multidiff_overlaps=1),
+     "multidiff_total_steps == 1"),
+    (dict(traj_features=[torch.zeros(1)], multidiff_total_steps=2, multidiff_overlaps=1),
+     "object conditioning"),
+    (dict(solver="euler"), "unknown solver"),
+], ids=["unequal_intervals", "cache_with_multidiff", "omc_with_multidiff", "unknown_solver"])
+def test_refused_modes_raise(tiny_pipe, kw, match):
+    """Where the JAX sampler asserts, the port raises ValueError before any work."""
+    with pytest.raises(ValueError, match=match):
+        tiny_pipe("x", video_length=2, height=64, width=64, latents=torch.zeros(1, 3, 8, 8, 4),
+                  **kw)
 
 
 _FORBIDDEN = re.compile(r"^\s*(?:import|from)\s+(jax|flax|synfmc_tpu)(?![\w])", re.M)
