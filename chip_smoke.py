@@ -11,7 +11,9 @@ Phases, each raising on failure (non-zero exit):
                 (recorded from a full-width UNet forward on the CFG pair, one
                 at batch 1 as a CFG-cache step runs it, a DeepCache shallow
                 forward, the pose encoder, the ObjectAdapter, a frame decode
-                and a 4-frame decode, each stage's launches checked), and K1
+                and a 4-frame decode, and the serve daemon's group of two
+                requests (pose encoder at batch 2, UNet at batch 4), each
+                stage's launches checked), and K1
                 at the padded stand-in shape
                 2x1617x(8x40) (K4's case), against its plain PyTorch version
                 on the same bf16 inputs (max abs error < 0.05 and < 2**-6 of
@@ -60,6 +62,23 @@ Phases, each raising on failure (non-zero exit):
                 GroupNorm backward (PyTorch ops, not a kernel) timed, and the
                 flash backward's passes (prologue, dK/dV, dQ) by device time
                 at the train step's spatial keys, level 0 first.
+  9. entry    - the user's entry points at full width, last: phase 6's
+                weights (rebuilt from the same seed) written as
+                reference-layout files (an SD1.5 diffusers directory with
+                safetensors, a .bin text encoder
+                and a BPE tokenizer, an AnimateDiff motion-module checkpoint,
+                LoRA / CMC / OMC bundles, a copy of configs/obj.yaml pointing
+                at them; ~3.5 GB in a temporary directory, deleted after);
+                build_pipeline from them (every parameter equal to its source
+                bit for bit); `python -m synfmc_tpu_torch.scripts.generate`
+                with a camera file and an object npz (a 16-frame 256x384 GIF
+                walked block by block, its launches exact); `python -m
+                synfmc_tpu_torch.scripts.serve --port 0 --max-batch 2
+                --batch-window 2 --warmup` (/healthz on cuda, two pairs of
+                concurrent requests each coalesced into one bucket of 2 with
+                exact launches, a wrong-length camera answered 400); the
+                command line's token ids and frames against an in-process run
+                (frames within 1e-3); load s, s/clip, GIF ms and bytes, peak.
 ``--profile`` adds a torch.profiler trace of each request's denoise loop and of
 one extra train step: device time by kernel family and the device's idle
 share.  The last two lines of stdout are the kernels' JSON summary and
@@ -74,6 +93,7 @@ in one run.
 
 from __future__ import annotations
 
+import ast
 import json
 import os
 import re
@@ -139,7 +159,12 @@ PER_SHALLOW = {"flash": 5, "temporal": 10, "group_norm": 21}
 PER_REQUEST = {"temporal": 8}
 PER_DECODE = {"group_norm": 30}
 PER_STAGE = {"unet": PER_FORWARD, "unet_b": PER_FORWARD, "shallow": PER_SHALLOW,
-             "pose": PER_REQUEST, "adapter": {}, "vae": PER_DECODE, "vae_chunk": PER_DECODE}
+             "pose": PER_REQUEST, "adapter": {}, "vae": PER_DECODE, "vae_chunk": PER_DECODE,
+             "pose_2": PER_REQUEST, "unet_2": PER_FORWARD}
+# The serve daemon's coalesced group of two requests (phase entry): the pose
+# encoder at batch 2 and the UNet on the two CFG pairs at batch 4.  Checked
+# like the others; a kernel's summary row is taken from the other stages.
+COALESCED = ("pose_2", "unet_2")
 DECODE_CHUNK = 4
 N_OBJECTS = 3
 # The five full-width requests of the obj-stage pipeline: (label, prompt,
@@ -417,7 +442,9 @@ def record_shapes(pipe):
     full-width UNet forward on the CFG pair (with DeepCache's tensor), one at
     batch B on the cond half (a CFG-cache step), one shallow forward on the
     pair (a DeepCache step), one VAE frame decode and one decode of
-    DECODE_CHUNK frames.  Checks each stage's launches against PER_STAGE."""
+    DECODE_CHUNK frames, and the serve daemon's group of two requests (the
+    pose encoder at batch 2, the UNet on both pairs at batch 4, no traj
+    features).  Checks each stage's launches against PER_STAGE."""
     with Recorder("pose") as rec:
         dev = pipe.device
         with torch.inference_mode():
@@ -440,6 +467,12 @@ def record_shapes(pipe):
             pipe.vae.decode(lat[:1, 0])
             rec.stage = "vae_chunk"
             pipe.vae.decode(lat[0, :DECODE_CHUNK])
+            rec.stage = "pose_2"
+            pose_two = pipe.encode_pose(torch.cat([plucker(pipe, "pan")] * 2))
+            rec.stage = "unet_2"
+            pipe.unet(torch.cat([lat, lat]), torch.cat([t, t]), torch.cat([ctx[:1], ctx[:1],
+                                                                           ctx[1:], ctx[1:]]),
+                      pose_features=[torch.cat([p, p]) for p in pose_two])
         torch.cuda.synchronize()
     seen = {k: rec.seen[k] for k in ("flash", "temporal", "group_norm")}
     for stage, want in PER_STAGE.items():
@@ -878,13 +911,16 @@ def compose():
     closes at the last), in every case of COMPOSE_CASES: final latents within
     LATENT_TOL, and the decoded frames too where the case decodes in chunks."""
     from synfmc_tpu_torch.pipelines.animation import decode_latents
-    from synfmc_tpu_torch.pipelines.factory import build_pipeline
+    from synfmc_tpu_torch.pipelines.factory import build_pipeline, randomize_pipeline_
 
     cfg = tiny_config(mixed_precision=False, path=OBJ_YAML)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cpu = build_pipeline(cfg, stage="obj", device="cpu", dtype=torch.float32, seed=0)
-    gpu = build_pipeline(cfg, stage="obj", device="cuda", dtype=torch.float32, seed=1)
+    # every conditioning path live: the seeded weights without the structural zeros
+    cpu = randomize_pipeline_(build_pipeline(cfg, stage="obj", device="cpu", dtype=torch.float32,
+                                             seed=0, allow_untrained_cm=True)[0], 0)
+    gpu = build_pipeline(cfg, stage="obj", device="cuda", dtype=torch.float32, seed=1,
+                         allow_untrained_cm=True)[0]
     for name in ("unet", "vae", "text_encoder", "pose_encoder", "adapter"):
         getattr(gpu, name).load_state_dict(getattr(cpu, name).state_dict())
     rng = np.random.default_rng(7)
@@ -1149,6 +1185,450 @@ def serve(pipe, card: str):
 
 
 # ---------------------------------------------------------------------------
+# phase entry: the user's entry points at full width, from reference-layout files
+# ---------------------------------------------------------------------------
+
+ENTRY_PROMPT = "a turtle paddles through a coral reef, seen from above!"
+ENTRY_SEED = 21
+ST_DTYPES = {torch.bfloat16: "BF16", torch.float16: "F16", torch.float32: "F32"}
+# A coalesced group of two requests: the UNet forwards at batch 4, the pose
+# encoder once at batch 2, and 2 x FRAMES single-frame decodes.
+GROUP_LAUNCHES = {k: STEPS * PER_FORWARD.get(k, 0) + PER_REQUEST.get(k, 0)
+                  + 2 * FRAMES * PER_DECODE.get(k, 0) for k in ("flash", "temporal", "group_norm")}
+
+
+def write_safetensors(path: str, tensors: dict) -> int:
+    """A safetensors file, by this script's own writer: the u64 header
+    length, the JSON header (padded to 8 bytes), each tensor's row-major
+    bytes in order.  Returns the file's size."""
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": ST_DTYPES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as fh:
+        fh.write(len(head).to_bytes(8, "little") + head)
+        for t in tensors.values():
+            fh.write(t.detach().to("cpu").contiguous().reshape(-1).view(torch.uint8).numpy())
+    return os.path.getsize(path)
+
+
+def write_tokenizer(folder: str, corpus, n_merges: int = 400) -> None:
+    """A synthetic byte-level BPE vocabulary in CLIP's layout: the 256 byte
+    symbols, the same with ``</w>``, the symbols of ``n_merges`` merges learnt
+    greedily from ``corpus``, then <|startoftext|> and <|endoftext|>."""
+    from synfmc_tpu_torch.data.tokenizer import bytes_to_unicode
+
+    os.makedirs(folder)
+    b2u = bytes_to_unicode()
+    vocab = list(b2u.values()) + [c + "</w>" for c in b2u.values()]
+    words = Counter()
+    for line in corpus:
+        for w in line.lower().split():
+            sym = [b2u[b] for b in w.encode()]
+            words[tuple(sym[:-1]) + (sym[-1] + "</w>",)] += 1
+    merges = []
+    for _ in range(n_merges):
+        pairs = Counter()
+        for w, c in words.items():
+            for pair in zip(w, w[1:]):
+                pairs[pair] += c
+        if not pairs:
+            break
+        best = max(pairs, key=lambda p: (pairs[p], p))
+        merges.append(best)
+        vocab.append(best[0] + best[1])
+        merged = Counter()
+        for w, c in words.items():
+            out, i = [], 0
+            while i < len(w):
+                if i < len(w) - 1 and (w[i], w[i + 1]) == best:
+                    out.append(w[i] + w[i + 1])
+                    i += 2
+                else:
+                    out.append(w[i])
+                    i += 1
+            merged[tuple(out)] += c
+        words = merged
+    vocab += ["<|startoftext|>", "<|endoftext|>"]
+    with open(os.path.join(folder, "vocab.json"), "w", encoding="utf-8") as fh:
+        json.dump({t: i for i, t in enumerate(vocab)}, fh, ensure_ascii=False)
+    with open(os.path.join(folder, "merges.txt"), "w", encoding="utf-8") as fh:
+        fh.write("#version: 0.2\n" + "\n".join(" ".join(m) for m in merges) + "\n")
+
+
+def camera_label_text(kind: str = "pan", frames: int = FRAMES) -> str:
+    """``camera(kind)`` as a camera label file (save_camera_info_txt layout)."""
+    intr, c2w = camera(kind, frames=frames)
+    lines = [str(frames)]
+    for i in range(frames):
+        vals = [float(v) for v in intr[0, i]] + [0.0, 0.0] + [float(v) for v in c2w[0, i, :3].reshape(-1)]
+        lines.append(" ".join([str(i)] + [repr(v) for v in vals]))
+    return "\n".join(lines) + "\n"
+
+
+def write_reference_files(pipe, root: str) -> dict:
+    """Every file the entry points read, from ``pipe``'s weights (bf16), in
+    the reference layout: an SD1.5 diffusers directory (UNet spatial keys and
+    VAE as safetensors, the text encoder as pytorch_model.bin, a BPE
+    tokenizer), an AnimateDiff motion-module checkpoint (with its PE tables),
+    the stage-1 LoRA, stage-2 CMC and stage-3 OMC bundles, a copy of
+    configs/obj.yaml pointing at them, a camera file and an object npz."""
+    import yaml
+
+    unet = pipe.unet.state_dict()
+    sd = os.path.join(root, "sd15")
+    for sub in ("unet", "vae", "text_encoder"):
+        os.makedirs(os.path.join(sd, sub))
+    sizes = {
+        "unet": write_safetensors(
+            os.path.join(sd, "unet", "diffusion_pytorch_model.safetensors"),
+            {k: v for k, v in unet.items() if "motion_modules" not in k and ".processor." not in k}),
+        "vae": write_safetensors(os.path.join(sd, "vae", "diffusion_pytorch_model.safetensors"),
+                                 pipe.vae.state_dict()),
+    }
+    cpu = lambda d: {k: v.detach().to("cpu").contiguous() for k, v in d.items()}
+    paths = {"text": os.path.join(sd, "text_encoder", "pytorch_model.bin"),
+             "mm": os.path.join(root, "mm_sd_v15_v3.ckpt"), "lora": os.path.join(root, "lora.ckpt"),
+             "cmc": os.path.join(root, "cmcm.ckpt"), "omcm": os.path.join(root, "omcm.ckpt")}
+    torch.save(cpu(pipe.text_encoder.state_dict()), paths["text"])
+    write_tokenizer(os.path.join(sd, "tokenizer"), [r[1] for r in REQUESTS] + [ENTRY_PROMPT])
+    motion = cpu({k: v for k, v in unet.items() if "motion_modules" in k and ".processor." not in k})
+    for k in [k for k in motion if re.search(r"attention_blocks\.\d+\.to_q\.weight$", k)]:
+        motion[k.replace("to_q.weight", "pos_encoder.pe")] = torch.zeros(1, 32, motion[k].shape[1])
+    torch.save({"state_dict": motion}, paths["mm"])
+    torch.save({"epoch": 1, "global_step": 1000, "optimizer_state_dict": None,
+                "lora_state_dict": cpu({k: v for k, v in unet.items() if "_lora." in k})},
+               paths["lora"])
+    torch.save({"epoch": 2, "global_step": 2000, "optimizer_state_dict": None,
+                "pose_encoder_state_dict": cpu(pipe.pose_encoder.state_dict()),
+                "attention_processor_state_dict": cpu({k: v for k, v in unet.items()
+                                                       if "_merge." in k})}, paths["cmc"])
+    torch.save({"epoch": 3, "global_step": 3000, "optimizer_state_dict": None,
+                "omcm_state_dict": cpu(pipe.adapter.state_dict())}, paths["omcm"])
+    with open(OBJ_YAML) as fh:
+        cfg = yaml.safe_load(fh)
+    cfg.update(pretrained_model_path=sd, motion_module_ckpt=paths["mm"], lora_ckpt=paths["lora"],
+               pretrained_cm_path=paths["cmc"], strict_pretrained=True)
+    paths["config"] = os.path.join(root, "obj.yaml")
+    with open(paths["config"], "w") as fh:
+        yaml.safe_dump(cfg, fh)
+    paths["camera"] = os.path.join(root, "camera.txt")
+    with open(paths["camera"], "w") as fh:
+        fh.write(camera_label_text())
+    info, masks = objects(31, FRAMES, HEIGHT, WIDTH)
+    paths["objects"] = os.path.join(root, "objects.npz")
+    np.savez(paths["objects"], obj_info=info[0], obj_masks=masks[0])
+    for key in ("text", "mm", "lora", "cmc", "omcm"):
+        sizes[key] = os.path.getsize(paths[key])
+    paths["sizes"] = sizes
+    return paths
+
+
+def gif_blocks(data: bytes) -> dict:
+    """Walk a GIF89a's blocks (this script's own reader): the screen size, the
+    NETSCAPE2.0 loop count, each Graphic Control Extension's delay and each
+    image's size; raises on anything else."""
+    if data[:6] != b"GIF89a":
+        raise AssertionError(f"not a GIF89a: {data[:6]!r}")
+    u16 = lambda i: int.from_bytes(data[i:i + 2], "little")
+    out = dict(width=u16(6), height=u16(8), loop=None, delays=[], images=[])
+    pos = 13 + (3 * (2 << (data[10] & 7)) if data[10] & 0x80 else 0)
+
+    def sub_blocks(pos):
+        chunks = []
+        while data[pos]:
+            chunks.append(data[pos + 1:pos + 1 + data[pos]])
+            pos += 1 + data[pos]
+        return chunks, pos + 1
+
+    while data[pos] != 0x3B:
+        if data[pos] == 0x21:
+            label = data[pos + 1]
+            chunks, pos = sub_blocks(pos + 2)
+            if label == 0xFF and chunks[0] == b"NETSCAPE2.0":
+                out["loop"] = int.from_bytes(chunks[1][1:3], "little")
+            elif label == 0xF9:
+                out["delays"].append(int.from_bytes(chunks[0][1:3], "little"))
+        elif data[pos] == 0x2C:
+            out["images"].append((u16(pos + 5), u16(pos + 7)))
+            flags = data[pos + 9]
+            pos += 10 + (3 * (2 << (flags & 7)) if flags & 0x80 else 0)
+            _, pos = sub_blocks(pos + 1)  # the LZW minimum code size, then the data
+        else:
+            raise AssertionError(f"unexpected GIF block 0x{data[pos]:02x} at {pos}")
+    if pos != len(data) - 1:
+        raise AssertionError(f"{len(data) - 1 - pos} bytes after the GIF trailer")
+    return out
+
+
+def check_gif(data: bytes, what: str, frames: int = FRAMES) -> dict:
+    g = gif_blocks(data)
+    want = dict(width=WIDTH, height=HEIGHT, loop=0, delays=[round(100 / 8)] * frames,
+                images=[(WIDTH, HEIGHT)] * frames)
+    if g != want:
+        raise AssertionError(f"{what}: GIF blocks {dict((k, g[k]) for k in ('width', 'height', 'loop'))}, "
+                             f"{len(g['images'])} images, delays {set(g['delays'])}")
+    return g
+
+
+class Daemon:
+    """``python -m synfmc_tpu_torch.scripts.serve`` as a child process, its
+    output collected line by line."""
+
+    def __init__(self, args):
+        import threading
+
+        self.proc = subprocess.Popen([sys.executable, "-m", "synfmc_tpu_torch.scripts.serve",
+                                      *args], cwd=REPO, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True)
+        self.lines = []
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.append(line.rstrip("\n"))
+
+    def wait_for(self, pattern: str, timeout: float = 600.0, n: int = 1):
+        """Every match of ``pattern`` in the log once there are ``n`` (two
+        handler threads may print onto one line)."""
+        end = time.time() + timeout
+        while time.time() < end:
+            found = [m for line in list(self.lines) for m in re.finditer(pattern, line)]
+            if len(found) >= n:
+                return found
+            if self.proc.poll() is not None:
+                break
+            time.sleep(0.2)
+        raise AssertionError(f"serve: no {pattern!r}; its log:\n" + "\n".join(self.lines[-40:]))
+
+    def close(self):
+        self.proc.terminate()
+        try:
+            self.proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+        self.reader.join(timeout=10)
+
+
+def http(port: int, path: str, body=None, timeout: float = 600.0):
+    """(status, content type, bytes, seconds) of one request to the daemon."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=None if body is None else json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, resp.headers["Content-Type"], resp.read(), time.perf_counter() - t0
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers["Content-Type"], e.read(), time.perf_counter() - t0
+
+
+def run_generate(paths: dict, card: str) -> dict:
+    """The command-line program as a user runs it, to a GIF and the frames."""
+    out, frames = (os.path.join(os.path.dirname(paths["config"]), n)
+                   for n in ("clip.gif", "frames.npz"))
+    cmd = [sys.executable, "-m", "synfmc_tpu_torch.scripts.generate", "--config", paths["config"],
+           "--prompt", ENTRY_PROMPT, "--omcm-ckpt", paths["omcm"],
+           "--camera-txt", paths["camera"], "--obj-traj-npz", paths["objects"],
+           "--num-inference-steps", str(STEPS), "--video-length", str(FRAMES),
+           "--guidance-scale", str(GUIDANCE), "--seed", str(ENTRY_SEED), "--out", out,
+           "--save-frames", frames]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0 or not os.path.exists(out):
+        raise AssertionError(f"generate: rc {proc.returncode}\n{proc.stdout[-4000:]}\n"
+                             f"{proc.stderr[-4000:]}")
+    line = next(x for x in proc.stdout.splitlines() if x.startswith("# generate:"))
+    nums = dict(re.findall(r"(load|denoise|decode) ([\d.]+) s", line))
+    gif_ms, gif_bytes = re.search(r"gif ([\d.]+) ms \((\d+) bytes\)", line).groups()
+    peak = float(re.search(r"peak ([\d.]+) GiB", line).group(1))
+    launches = ast.literal_eval(re.search(r"launches (\{.*\})", line).group(1))
+    with open(out, "rb") as fh:
+        check_gif(fh.read(), "generate")
+    want = {k: v for k, v in expected_launches({}, "pan", FRAMES).items() if k in launches}
+    if launches != want:
+        raise AssertionError(f"generate: launches {launches} != {want}")
+    log(f"  generate: {wall:.2f} s from start to file ({out}); in process: load {nums['load']} s, "
+        f"denoise {nums['denoise']} s ({STEPS} steps), decode {nums['decode']} s, GIF encode "
+        f"{gif_ms} ms ({gif_bytes} bytes, {FRAMES} frames {WIDTH}x{HEIGHT}, loop 0, delay 12 cs), "
+        f"peak {peak:.2f} GiB, launches {launches}; {card}")
+    return dict(wall_s=wall, load_s=float(nums["load"]), denoise_s=float(nums["denoise"]),
+                decode_s=float(nums["decode"]), gif_ms=float(gif_ms), gif_bytes=int(gif_bytes),
+                peak_gib=peak, launches=launches, frames=frames)
+
+
+def run_serve(paths: dict, card: str) -> dict:
+    """The daemon on the same files: /healthz, two pairs of concurrent
+    requests (each pair one bucket of 2), a camera of the wrong length."""
+    import threading
+
+    daemon = Daemon(["--config", paths["config"], "--omcm-ckpt", paths["omcm"], "--port", "0",
+                     "--max-batch", "2", "--batch-window", "2", "--warmup",
+                     "--num-inference-steps", str(STEPS), "--video-length", str(FRAMES)])
+    t0 = time.perf_counter()
+    try:
+        port = int(daemon.wait_for(r"listening on 127\.0\.0\.1:(\d+)")[0].group(1))
+        start_s = time.perf_counter() - t0
+        code, _, body, _ = http(port, "/healthz")
+        health = json.loads(body)
+        if code != 200 or health.get("backend") != "cuda" or health.get("stage") != "obj":
+            raise AssertionError(f"serve: /healthz {code} {health}")
+        cam = camera_label_text()
+        latencies = []
+        for pair in range(2):
+            results = [None, None]
+
+            def ask(i):
+                results[i] = http(port, "/generate", {
+                    "prompt": REQUESTS[i][1], "seed": 300 + 10 * pair + i, "camera_txt": cam,
+                    "num_inference_steps": STEPS, "video_length": FRAMES,
+                    "guidance_scale": GUIDANCE})
+
+            threads = [threading.Thread(target=ask, args=(i,)) for i in range(2)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=900)
+                if t.is_alive():
+                    raise AssertionError("serve: a request did not come back")
+            for i, (code, ctype, data, secs) in enumerate(results):
+                if code != 200 or ctype != "image/gif":
+                    raise AssertionError(f"serve: request {pair}.{i}: {code} {data[:300]!r}")
+                check_gif(data, f"serve request {pair}.{i}")
+                latencies.append(secs)
+        groups = daemon.wait_for(r"batched 2 request\(s\), 2 sample\(s\) -> bucket 2, "
+                                 r"launches (\{[^}]*\}) in ([\d.]+)s", n=2)
+        if len(groups) != 2:
+            raise AssertionError(f"serve: {len(groups)} coalesced groups of 2, want 2")
+        for m in groups:
+            got = ast.literal_eval(m.group(1))
+            if got != GROUP_LAUNCHES:
+                raise AssertionError(f"serve: group launches {got} != {GROUP_LAUNCHES}")
+        code, _, body, _ = http(port, "/generate", {"prompt": "x",
+                                                    "camera_txt": camera_label_text("pan", 15)})
+        if code != 400 or b"poses but video_length" not in body:
+            raise AssertionError(f"serve: a 15-pose camera for 16 frames answered {code} {body!r}")
+        served = daemon.wait_for(r"generated 1 clip\(s\) x 16f in ([\d.]+)s \(gif ([\d.]+) ms, "
+                                 r"(\d+) bytes, peak ([\d.]+) GiB\)", n=4)
+    finally:
+        daemon.close()
+    group_s = [float(m.group(2)) for m in groups]
+    peak = max(float(m.group(4)) for m in served)
+    gif_ms = [float(m.group(2)) for m in served]
+    log(f"  serve: listening {start_s:.1f} s after start (warmup included); /healthz backend "
+        f"cuda; 2 pairs of concurrent requests, each pair one bucket of 2: group pipeline "
+        f"{['%.3f' % s for s in group_s]} s, per-request latency (client, 2 s batch window "
+        f"included) {['%.3f' % s for s in latencies]} s, GIF encode "
+        f"{['%.1f' % s for s in gif_ms]} ms, {served[0].group(3)} bytes, peak {peak:.2f} GiB; "
+        f"the 15-pose camera answered 400; {card}")
+    for line in daemon.lines:
+        if "Traceback" in line or "Error" in line:
+            log(f"  serve log: {line}")
+    return dict(start_s=start_s, group_s=group_s, latency_s=latencies, gif_ms=gif_ms,
+                peak_gib=peak, launches=sum((Counter(ast.literal_eval(m.group(1))) for m in groups),
+                                            Counter()))
+
+
+def entry(pipe, card: str) -> Counter:
+    """Phase entry: write the reference-layout files from ``pipe``'s weights,
+    build the obj stage from them (every parameter bit for bit), run the
+    command-line program and the daemon on them as a user would, and hold the
+    command line's frames to an in-process run.  Returns the launches of the
+    entry paths (the program's and the daemon's as they log them, and the
+    in-process run's)."""
+    import shutil
+    import tempfile
+
+    from synfmc_tpu_torch.data.tokenizer import CLIPTokenizer
+    from synfmc_tpu_torch.evaluation.metrics import parse_camera_txt
+    from synfmc_tpu_torch.pipelines.factory import build_pipeline
+    from synfmc_tpu_torch.scripts.generate import camera_plucker, object_features
+
+    root = tempfile.mkdtemp(prefix="synfmc_entry_")
+    try:
+        t0 = time.perf_counter()
+        paths = write_reference_files(pipe, root)
+        sizes = paths["sizes"]
+        log(f"  files written in {time.perf_counter() - t0:.1f} s: "
+            + ", ".join(f"{k} {v / 2**20:.1f} MiB" for k, v in sizes.items())
+            + f" ({sum(sizes.values()) / 2**30:.2f} GiB)")
+
+        t0 = time.perf_counter()
+        loaded = build_pipeline(paths["config"], stage="obj", cm_ckpt=paths["cmc"],
+                                omcm_ckpt=paths["omcm"], seed=ENTRY_SEED)[0]
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        if not isinstance(loaded.tokenizer, CLIPTokenizer):
+            raise AssertionError(f"entry: tokenizer {type(loaded.tokenizer).__name__}")
+        n = 0
+        for name in ("unet", "vae", "text_encoder", "pose_encoder", "adapter"):
+            src = dict(getattr(pipe, name).named_parameters())
+            got = dict(getattr(loaded, name).named_parameters())
+            bad = [k for k, p in got.items() if not torch.equal(p, src[k])]
+            if set(got) != set(src) or bad:
+                raise AssertionError(f"entry: {name}: {len(bad)} parameters differ from the "
+                                     f"files' source, e.g. {bad[:3]}")
+            n += len(got)
+        log(f"  build_pipeline from the files: {load_s:.2f} s, {n} parameters equal to their "
+            f"source bit for bit (seed {ENTRY_SEED} for anything unloaded), tokenizer "
+            f"CLIPTokenizer; {card}")
+
+        cli = run_generate(paths, card)
+        srv = run_serve(paths, card)
+
+        # the command line's request, in process on the loaded pipeline
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True  # a fresh process's default
+        for fn in counters().values():
+            fn.launches = 0
+        try:
+            video = loaded([ENTRY_PROMPT], video_length=FRAMES, height=HEIGHT, width=WIDTH,
+                           num_inference_steps=STEPS, guidance_scale=GUIDANCE,
+                           generator=torch.Generator(device="cuda").manual_seed(ENTRY_SEED),
+                           plucker=camera_plucker((HEIGHT, WIDTH), 1, FRAMES,
+                                                  parse_camera_txt(paths["camera"]), "cuda"),
+                           traj_features=object_features(loaded, paths["objects"], 1),
+                           omcm_min_step=OMCM)
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        inproc = Counter({k: fn.launches for k, fn in counters().items()})
+        if dict(inproc) != expected_launches({}, "pan", FRAMES):
+            raise AssertionError(f"entry: in-process launches {dict(inproc)}")
+        with np.load(cli["frames"]) as saved:
+            ids, frames = saved["input_ids"], saved["video"]
+        if ids.tolist() != loaded.tokenizer([ENTRY_PROMPT]).tolist():
+            raise AssertionError("entry: the command line's token ids differ from in-process ones")
+        err = float(np.abs(frames - video.float().cpu().numpy()).max())
+        log(f"  in-process run of the command line's request: token ids equal "
+            f"({int((ids[0] != loaded.tokenizer.pad_id).sum())} before padding), frames max abs "
+            f"diff {err:.3e} (limit {LATENT_TOL}); launches {dict(inproc)}")
+        if not err < LATENT_TOL:
+            raise AssertionError(f"entry: command-line frames differ by {err}")
+        del loaded
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    total = Counter(cli["launches"]) + srv["launches"] + inproc
+    log(f"[entry] per clip: command line {cli['wall_s']:.2f} s wall (load {cli['load_s']:.2f}, "
+        f"denoise {cli['denoise_s']:.3f}, decode {cli['decode_s']:.3f}, GIF {cli['gif_ms']:.1f} ms, "
+        f"{cli['gif_bytes']} bytes, peak {cli['peak_gib']:.2f} GiB); daemon group of 2 "
+        f"{srv['group_s']} s, latencies {['%.3f' % s for s in srv['latency_s']]} s, peak "
+        f"{srv['peak_gib']:.2f} GiB; in-process build {load_s:.2f} s; {card}")
+    return total
+
+
+# ---------------------------------------------------------------------------
 # phase 7: the stage-2 train step at full width
 # ---------------------------------------------------------------------------
 
@@ -1350,7 +1830,8 @@ def summarise(results, launches):
     for name, kind, src, replaces, standin in KERNELS:
         rows = [r for r in results[kind] if (r["key"] == standin) == (standin is not None)
                 and (standin is not None or r["key"][0] not in ("k4/k7", "k6"))]
-        hot = max(rows, key=lambda r: r["per_forward"] * r["ms"])
+        hot = max((r for r in rows if r["key"][0] not in COALESCED),
+                  key=lambda r: r["per_forward"] * r["ms"])
         summary.append({
             "name": name, "route": "cuda", "source": f"synfmc_tpu_torch/csrc/{src}",
             "replaces": replaces, "launches": 0 if standin else launches[kind],
@@ -1394,7 +1875,7 @@ def main() -> int:
         return passes_only(args[1] if len(args) > 1 else REPO)
     sys.path.insert(0, REPO)
     from synfmc_tpu_torch.ops import _cuda
-    from synfmc_tpu_torch.pipelines.factory import build_pipeline
+    from synfmc_tpu_torch.pipelines.factory import build_pipeline, randomize_pipeline_
 
     profile = "--profile" in args
     name = torch.cuda.get_device_name(0)
@@ -1417,7 +1898,10 @@ def main() -> int:
     log(f"[build] {len(logs)} libraries in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    pipe = build_pipeline(OBJ_YAML, stage="obj", seed=0)
+    # seeded weights with every conditioning path live (no checkpoint files yet); the
+    # pipeline alone is kept (the info dict holds the modules too)
+    pipe = randomize_pipeline_(build_pipeline(OBJ_YAML, stage="obj", seed=0,
+                                              allow_untrained_cm=True)[0], 0)
     log(f"[main] flagship obj-stage pipeline built in {time.perf_counter() - t0:.1f} s, "
         f"UNet {sum(p.numel() for p in pipe.unet.parameters()) / 1e6:.0f} M params, "
         f"ObjectAdapter {sum(p.numel() for p in pipe.adapter.parameters()) / 1e6:.0f} M, "
@@ -1469,6 +1953,15 @@ def main() -> int:
     passes = [flash_bwd_passes(*key[1:5])
               for key in sorted(tr["seen"]["flash_bwd"], key=lambda k: -k[2])]
     log(f"[backward] flash_bwd passes by device time (level 0 first): {json.dumps(passes)}")
+
+    # last, so that its child processes and its 3.5 GB of files touch no earlier measurement
+    log("[entry] the command-line program and the daemon at full width, from reference-layout "
+        "files written from the serving phase's weights (the same seed, bf16)")
+    pipe = randomize_pipeline_(build_pipeline(OBJ_YAML, stage="obj", seed=0,
+                                              allow_untrained_cm=True)[0], 0)
+    launches.update(entry(pipe, card[0] if card else ""))
+    del pipe
+    torch.cuda.empty_cache()
 
     print(json.dumps({"kernels": summarise(results, launches)}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,23 +1,31 @@
-"""Config -> AnimationPipeline with seeded random weights.
+"""Config -> checkpoint files -> AnimationPipeline, for the entry points
+(scripts/generate.py, scripts/serve.py).
 
-Builds the camera-conditioned (cam stage) or camera- and object-conditioned
-(obj stage) pipeline from a reference-format YAML config (configs/cam.yaml,
+The counterpart of synfmc_tpu/pipelines/factory.py:build_pipeline.  Builds
+the camera-conditioned (cam stage) or camera- and object-conditioned (obj
+stage) pipeline from a reference-format YAML config (configs/cam.yaml,
 configs/obj.yaml keys: unet_additional_kwargs, lora_rank, lora_scale,
 attention_processor_kwargs, pose_encoder_kwargs, omcm_config,
-noise_scheduler_kwargs, mixed_precision_training) plus the optional
-``model_overrides`` that shrink every module for tests.  Real checkpoints
-load afterwards through ``interop.torch_port.load_jax_params`` or
-``load_state_dict``.
+noise_scheduler_kwargs, mixed_precision_training and the checkpoint paths)
+plus the optional ``model_overrides`` that shrink every module for tests.
+
+Weights start as the JAX package's do: seeded random, with its structural
+zeros (``init_structural_zeros_``), so a partial load computes what the JAX
+package computes; then the configured checkpoints load over them
+(``training.pretrained.load_pretrained``), the OMC bundle last.
 """
 
 from __future__ import annotations
 
+import logging
 import math
+import re
 from typing import Optional
 
 import torch
 
-from synfmc_tpu_torch.data.tokenizer import HashTokenizer
+from synfmc_tpu_torch.config import load_config
+from synfmc_tpu_torch.data.tokenizer import load_tokenizer
 from synfmc_tpu_torch.device import resolve_device
 from synfmc_tpu_torch.diffusion.scheduler import DiffusionSchedule
 from synfmc_tpu_torch.models.adapter import ObjectAdapter
@@ -26,19 +34,12 @@ from synfmc_tpu_torch.models.pose_encoder import CameraPoseEncoder
 from synfmc_tpu_torch.models.unet3d import UNet3D, unet_config_from_yaml
 from synfmc_tpu_torch.models.vae import AutoencoderKL
 from synfmc_tpu_torch.pipelines.animation import AnimationPipeline
+from synfmc_tpu_torch.training.checkpoint import load_into_module, torch_load_state_dict
+from synfmc_tpu_torch.training.pretrained import load_pretrained, validate_pretrained_paths
 
 SD15_TEXT = dict(vocab_size=49408, hidden_size=768, num_layers=12, num_heads=12)
 STAGES = ("cam", "obj")
-
-
-def load_config(config) -> dict:
-    """A config dict, or the path of a YAML file."""
-    if isinstance(config, dict):
-        return config
-    import yaml
-
-    with open(config) as fh:
-        return yaml.safe_load(fh)
+logger = logging.getLogger(__name__)
 
 
 def _attn_block_indices(v) -> tuple:
@@ -101,8 +102,8 @@ def build_models(config: dict, stage: str = "cam") -> dict:
 def init_random_(module: torch.nn.Module, generator: torch.Generator) -> torch.nn.Module:
     """Seeded random weights: matrices and conv kernels N(0, 1/fan_in), norm
     scales 1, biases 0, token embeddings N(0, 1), position embeddings N(0, 0.01).
-    LoRA and pose-merge projections and the adapter's zero convs get random
-    (not zero) weights, so the conditioning paths change the output."""
+    Every matrix is random, the groups ``init_structural_zeros_`` zeroes
+    included, so every conditioning path changes the output."""
     for name, p in module.named_parameters():
         if p.dim() == 1:
             p.fill_(1.0 if name.endswith("weight") else 0.0)
@@ -118,15 +119,79 @@ def init_random_(module: torch.nn.Module, generator: torch.Generator) -> torch.n
     return module
 
 
-def build_pipeline(config, *, stage: str = "cam", device=None,
-                   dtype: Optional[torch.dtype] = None, seed: int = 42) -> AnimationPipeline:
-    """The ``stage``'s ("cam" or "obj") AnimationPipeline with random weights
-    made from ``seed``.
+# The JAX package's zero-initialised parameters: the LoRA up-projections
+# (synfmc_tpu/models/attention.py:38-40), the pose merges (:91-114) and the
+# ObjectAdapter's zero convs (models/adapter.py:47,64); with
+# motion_module_kwargs.zero_initialize also each motion module's proj_out
+# (models/motion_module.py:128-129).
+_STRUCTURAL_ZEROS = re.compile(
+    r"(\.processor\.to_(q|k|v|out)_lora\.up\.weight"
+    r"|\.processor\.(qkv|q|kv)_merge\.(weight|bias)"
+    r"|^(zero_conv_in|zero_conv_out_list\.\d+)\.(weight|bias))$")
+_MOTION_PROJ_OUT = re.compile(r"motion_modules\.\d+\.temporal_transformer\.proj_out\.(weight|bias)$")
 
-    ``device`` defaults to ``cuda`` (raises without a GPU); ``dtype`` defaults
-    to bf16 when the config sets ``mixed_precision_training`` (the default),
+
+@torch.no_grad()
+def init_structural_zeros_(models: dict, config: dict) -> dict:
+    """Zero the groups the JAX package initialises to zero, in place."""
+    mm = (config.get("unet_additional_kwargs") or {}).get("motion_module_kwargs") or {}
+    zero_proj_out = bool(mm.get("zero_initialize", False))
+    for module in models.values():
+        for name, p in module.named_parameters():
+            if _STRUCTURAL_ZEROS.search(name) or (zero_proj_out and _MOTION_PROJ_OUT.search(name)):
+                p.zero_()
+    return models
+
+
+def randomize_pipeline_(pipe: AnimationPipeline, seed: int) -> AnimationPipeline:
+    """``init_random_`` over every module of ``pipe`` from one generator seeded
+    with ``seed``, in build order (unet, vae, text, pose encoder, adapter):
+    seeded weights with every conditioning path live, for smoke runs and
+    tests that drive those paths without checkpoints."""
+    gen = torch.Generator(device=pipe.device).manual_seed(seed)
+    for module in (pipe.unet, pipe.vae, pipe.text_encoder, pipe.pose_encoder, pipe.adapter):
+        if module is not None:
+            init_random_(module, gen)
+    return pipe
+
+
+def build_pipeline(config, *, stage: Optional[str] = None, seed: int = 42,
+                   video_length: int = 16, lora_ckpt: Optional[str] = None,
+                   cm_ckpt: Optional[str] = None, omcm_ckpt: Optional[str] = None,
+                   allow_untrained_cm: bool = False, data_parallel: int = 0,
+                   frame_parallel: int = 0, batch: int = 1, device=None,
+                   dtype: Optional[torch.dtype] = None) -> tuple[AnimationPipeline, dict]:
+    """Build an AnimationPipeline from a reference-format config (a dict or a
+    YAML path) and its checkpoint files.  Returns ``(pipe, info)``; info
+    holds ``stage``, ``sample_size`` (train_data.params.sample_size),
+    ``models``, ``schedule`` and ``meta`` (load_pretrained's).
+
+    ``stage`` defaults to "obj" with an ``omcm_ckpt``, else "cam";
+    ``lora_ckpt`` and ``cm_ckpt`` override the config's ``lora_ckpt`` and
+    ``pretrained_cm_path``; the obj stage needs a CMC file unless
+    ``allow_untrained_cm``.  ``seed`` makes the weights no file covers.
+    ``video_length`` and ``batch`` are the JAX package's keywords: its
+    parameter init and mesh take shapes from them, the port's modules take
+    any.  ``data_parallel`` / ``frame_parallel`` (the mesh) raise.
+    ``device`` defaults to ``cuda`` (raises without a GPU); ``dtype`` to
+    bf16 when the config sets ``mixed_precision_training`` (the default),
     else fp32."""
-    config = load_config(config)
+    if data_parallel or frame_parallel:
+        raise NotImplementedError(
+            "data_parallel / frame_parallel: the multi-device mesh is not ported "
+            "(ROADMAP.md, Queue 1 item 7)")
+    config = dict(load_config(config))
+    if lora_ckpt:
+        config["lora_ckpt"] = lora_ckpt
+    if cm_ckpt:
+        config["pretrained_cm_path"] = cm_ckpt
+    if allow_untrained_cm:
+        config["allow_untrained_cm"] = True
+    if stage is None:
+        stage = "obj" if omcm_ckpt else "cam"
+    if omcm_ckpt and stage != "obj":
+        raise ValueError(f"an OMC bundle needs stage='obj', not {stage!r}")
+    validate_pretrained_paths(config, stage)
     dev = resolve_device(device)
     if dtype is None:
         dtype = torch.bfloat16 if config.get("mixed_precision_training", True) else torch.float32
@@ -135,10 +200,24 @@ def build_pipeline(config, *, stage: str = "cam", device=None,
     gen = torch.Generator(device=dev).manual_seed(seed)
     for module in models.values():
         init_random_(module, gen)
+    init_structural_zeros_(models, config)
+    for module in models.values():
         module.to(dtype=dtype, memory_format=torch.channels_last)
-    return AnimationPipeline(
+    models, meta = load_pretrained(models, config, stage, logger)
+    if omcm_ckpt:
+        bundle = torch_load_state_dict(omcm_ckpt)
+        load_into_module(models["adapter"], bundle["omcm_state_dict"], "adapter")
+        logger.info(f"loaded OMC adapter from {omcm_ckpt}")
+    schedule = DiffusionSchedule.from_config(**(config.get("noise_scheduler_kwargs") or {}))
+    tokenizer = load_tokenizer(config.get("pretrained_model_path"),
+                               strict=bool(config.get("strict_pretrained", False)))
+    pipe = AnimationPipeline(
         unet=models["unet"], vae=models["vae"], text_encoder=models["text"],
-        tokenizer=HashTokenizer(),
-        schedule=DiffusionSchedule.from_config(**(config.get("noise_scheduler_kwargs") or {})),
-        pose_encoder=models["pose_encoder"], adapter=models.get("adapter"), device=dev,
+        tokenizer=tokenizer, schedule=schedule, pose_encoder=models["pose_encoder"],
+        adapter=models.get("adapter"), device=dev,
     )
+    sample_size = tuple((config.get("train_data") or {}).get("params", {})
+                        .get("sample_size", (256, 384)))
+    info = dict(stage=stage, sample_size=sample_size, models=models, schedule=schedule,
+                meta=meta)
+    return pipe, info

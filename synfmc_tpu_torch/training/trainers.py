@@ -23,10 +23,11 @@ from typing import Callable, Iterable, Optional
 import numpy as np
 import torch
 
+from synfmc_tpu_torch.config import load_config
 from synfmc_tpu_torch.data.tokenizer import HashTokenizer
 from synfmc_tpu_torch.device import resolve_device
 from synfmc_tpu_torch.diffusion.scheduler import DiffusionSchedule
-from synfmc_tpu_torch.pipelines.factory import build_models, init_random_, load_config
+from synfmc_tpu_torch.pipelines.factory import build_models, init_random_
 from synfmc_tpu_torch.training.optim import make_optimizer
 from synfmc_tpu_torch.training.params import (
     count_params,

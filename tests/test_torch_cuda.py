@@ -426,13 +426,15 @@ def obj_pipes():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from chip_smoke import OBJ_YAML, tiny_config
-    from synfmc_tpu_torch.pipelines.factory import build_pipeline
+    from synfmc_tpu_torch.pipelines.factory import build_pipeline, randomize_pipeline_
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = tiny_config(mixed_precision=False, path=OBJ_YAML)
-    cpu = build_pipeline(cfg, stage="obj", device="cpu", seed=0)
-    gpu = build_pipeline(cfg, stage="obj", device="cuda", seed=1)
+    # every conditioning path live: the seeded weights without the structural zeros
+    cpu = randomize_pipeline_(build_pipeline(cfg, stage="obj", device="cpu", seed=0,
+                                             allow_untrained_cm=True)[0], 0)
+    gpu = build_pipeline(cfg, stage="obj", device="cuda", seed=1, allow_untrained_cm=True)[0]
     for name in ("unet", "vae", "text_encoder", "pose_encoder", "adapter"):
         getattr(gpu, name).load_state_dict(getattr(cpu, name).state_dict())
     return cpu, gpu

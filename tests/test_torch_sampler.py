@@ -123,7 +123,7 @@ def case():
 
 @pytest.fixture(scope="module")
 def pipe(case):
-    p = build_pipeline(case["cfg"], stage="obj", device="cpu", seed=0)
+    p, _ = build_pipeline(case["cfg"], stage="obj", device="cpu", seed=0, allow_untrained_cm=True)
     for name, module in (("unet", p.unet), ("vae", p.vae), ("clip_text", p.text_encoder),
                          ("pose_encoder", p.pose_encoder), ("adapter", p.adapter)):
         load_jax_params(module, case["params"][name], name)
