@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (synfmc_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py --train-files
     python3 chip_smoke.py --passes [ROOT]
 
 Phases, each raising on failure (non-zero exit):
@@ -49,7 +50,8 @@ Phases, each raising on failure (non-zero exit):
   7. train    - training.trainers.train("cam", configs/cam.yaml) at full
                 width (batch 1, 16x256x384, bf16, fp32 masters) takes 5 AdamW
                 steps on seeded synthetic batches: finite losses, a finite
-                non-zero gradient for every trainable tensor at step 1,
+                non-zero gradient for every trainable tensor at the first
+                step after step 1 that kept the camera,
                 trainable weights moved and frozen ones not, launch counters
                 exact per step; ms per step, peak memory, trainable count;
   8. backward - every kernel at every shape the recorded train steps gave it
@@ -62,7 +64,20 @@ Phases, each raising on failure (non-zero exit):
                 GroupNorm backward (PyTorch ops, not a kernel) timed, and the
                 flash backward's passes (prologue, dK/dV, dQ) by device time
                 at the train step's spatial keys, level 0 first.
-  9. entry    - the user's entry points at full width, last: phase 6's
+  9. train-files - `python -m synfmc_tpu_torch.scripts.train --stage cam` as
+                child processes at full width (batch 1, 16x256x384, bf16, fp32
+                masters, 8 loader workers) on a fixture dataset (4 sequences x
+                65 frames at 512x768, 3 objects) and the serving phase's
+                weights as reference-layout SD1.5 / motion-module / LoRA files,
+                checkpointing every 2 steps: 6 steps; 3 steps, then
+                resume_from: auto to 6.  The files' tensors reach the model bit
+                for bit, launches per step exact, run c's restored state equal
+                to run b's saved one bit for bit, losses after the resume
+                within 1e-2 relative of run a's, run a's last cmcm-step-6.ckpt
+                through build_pipeline equal to its final weights; first-step
+                seconds, data wait and step ms, checkpoint seconds and bytes,
+                peak;
+ 10. entry    - the user's entry points at full width, last: phase 6's
                 weights (rebuilt from the same seed) written as
                 reference-layout files (an SD1.5 diffusers directory with
                 safetensors, a .bin text encoder
@@ -83,6 +98,8 @@ Phases, each raising on failure (non-zero exit):
 one extra train step: device time by kernel family and the device's idle
 share.  The last two lines of stdout are the kernels' JSON summary and
 {"ok": true, "device": {...}}.
+
+``--train-files`` builds and runs phase 9 alone.
 
 ``--passes [ROOT]`` only times K1 by kernel at its three keys (32x1536x320,
 16x1536x320, 32x384x640, 8 heads) beside SDPA's forward kernels, and the
@@ -1634,8 +1651,10 @@ def entry(pipe, card: str) -> Counter:
 
 
 def train_main(profile: bool):
-    """train("cam", configs/cam.yaml) for TRAIN_STEPS steps (one more, traced,
-    with --profile), with the kernel shapes recorded for phase 8."""
+    """train("cam", configs/cam.yaml) on seeded synthetic batches for
+    TRAIN_STEPS steps (one more, traced, with --profile), with the kernel
+    shapes recorded for phase 8; its run directory (the end-of-run
+    checkpoint) goes to a temporary directory, deleted after."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -1648,11 +1667,12 @@ def train_main(profile: bool):
         per_step.append({k: fn.launches for k, fn in kernels.items()})
         for fn in kernels.values():
             fn.launches = 0
-        # a finite, non-zero gradient for every trainable tensor, at step 1
-        # unless its camera CFG dropout zeroed the Plücker input (then the
-        # pose encoder's first layers rightly get zero gradients): the first
-        # step that kept the camera
-        if not grad_flags and not bool(draws.camera_drop.any()):
+        # a finite, non-zero gradient for every trainable tensor at the first
+        # step after step 1 that kept the camera: the pose merges start at
+        # zero (the JAX package's init), so at step 1 the pose encoder's
+        # gradients are rightly zero, and a camera CFG dropout zeroes the
+        # Plücker input and so its first layers' gradients
+        if not grad_flags and state.step >= 2 and not bool(draws.camera_drop.any()):
             grad_flags.extend(
                 (n, p.grad is not None and bool(torch.isfinite(p.grad).all())
                  and bool(p.grad.abs().max() > 0)) for n, p in state.trainable.items())
@@ -1667,13 +1687,24 @@ def train_main(profile: bool):
             traced["ms"] = (time.perf_counter() - traced["t0"]) * 1e3
             traced["prof"].stop()
 
+    import shutil
+    import tempfile
+
+    import yaml
+
+    with open(CAM_YAML) as fh:
+        cfg = yaml.safe_load(fh)
+    cfg["output_dir"] = tempfile.mkdtemp(prefix="synfmc_train_")  # its end-of-run checkpoint
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for fn in kernels.values():
         fn.launches = 0
-    with Recorder("train") as rec:
-        out = train("cam", CAM_YAML, synthetic_batches(0), TRAIN_STEPS + int(profile), seed=0,
-                    on_step=on_step)
+    try:
+        with Recorder("train") as rec:
+            out = train("cam", cfg, synthetic_batches(0), TRAIN_STEPS + int(profile), seed=0,
+                        on_step=on_step)
+    finally:
+        shutil.rmtree(cfg["output_dir"], ignore_errors=True)
     peak = torch.cuda.max_memory_allocated()
     if not grad_flags:
         raise AssertionError("train: every step dropped the camera")
@@ -1713,6 +1744,231 @@ def train_main(profile: bool):
     seen = {k: Counter({key: n // steps for key, n in v.items()}) for k, v in rec.seen.items()}
     return dict(ms=ms, peak=peak, launches=train_launches, seen=seen,
                 trainable=out["trainable_params"])
+
+
+# ---------------------------------------------------------------------------
+# phase train-files: the trainer from files, as a user runs it
+# ---------------------------------------------------------------------------
+
+FILES_STEPS, FILES_RESUME_AT = 6, 3
+TRAIN_FILES_HEAD = (
+    f"[train-files] python -m synfmc_tpu_torch.scripts.train --stage cam on a fixture dataset "
+    f"and reference-layout files: batch 1, {FRAMES} frames {HEIGHT}x{WIDTH}, bf16 with fp32 "
+    f"masters, {FILES_STEPS} steps; {FILES_RESUME_AT} steps, then resume_from: auto to "
+    f"{FILES_STEPS}; checkpointing_steps 2")
+# The dataset fixture: 4 sequences of 65 frames at twice the sample size, so
+# that the loader's resample really downsizes.  Its object masks are 14x14
+# squares, under the dataset's default visibility threshold (0.15 % of a
+# 512x768 frame, 590 px), so the config lowers the threshold to 0.04 %.
+FIXTURE = dict(num_seqs=4, num_objects=N_OBJECTS, num_frames=64, height=2 * HEIGHT,
+               width=2 * WIDTH)
+APPEARANCE = 0.0004
+# Losses after the resume against the uninterrupted run's, relative.  The
+# restored state is checked bit for bit; the two runs' states can still
+# differ in the last bits after their first steps, as cuDNN's and cuBLAS's
+# backward passes may reduce in another order from run to run, and the bf16
+# forward turns that into a small loss difference.  A wrong batch, draw or
+# step moves the loss by far more: the timestep alone changes it by tens of
+# percent.
+RESUME_LOSS_REL_TOL = 1e-2
+
+
+def write_train_files(root: str) -> dict:
+    """Everything the trainer reads, written by the port's own writers: a
+    fixture dataset, the serving phase's weights (the same seed) as
+    reference-layout files (SD1.5 directory, AnimateDiff motion modules,
+    LoRA bundle; write_reference_files), and a copy of configs/cam.yaml
+    naming them with checkpointing_steps 2.  Returns the paths and the
+    source pipeline."""
+    import yaml
+
+    from synfmc_tpu_torch.data.fixture import build_synthetic_dataset
+    from synfmc_tpu_torch.pipelines.factory import build_pipeline, randomize_pipeline_
+
+    t0 = time.perf_counter()
+    data = build_synthetic_dataset(os.path.join(root, "data"), **FIXTURE)
+    fixture_s = time.perf_counter() - t0
+    fixture_bytes = sum(os.path.getsize(os.path.join(d, f))
+                        for d, _, fs in os.walk(os.path.join(root, "data")) for f in fs)
+    pipe = randomize_pipeline_(build_pipeline(OBJ_YAML, stage="obj", seed=0,
+                                              allow_untrained_cm=True)[0], 0)
+    t0 = time.perf_counter()
+    paths = write_reference_files(pipe, os.path.join(root, "files"))
+    files_s = time.perf_counter() - t0
+    with open(CAM_YAML) as fh:
+        cfg = yaml.safe_load(fh)
+    cfg.update(pretrained_model_path=os.path.join(root, "files", "sd15"),
+               motion_module_ckpt=paths["mm"], lora_ckpt=paths["lora"], strict_pretrained=True,
+               checkpointing_steps=2, logger_interval=1)
+    cfg["train_data"]["params"].update(data, appearance_percentage=APPEARANCE)
+    configs = {}
+    for run, out, resume in (("a", "a", None), ("b", "b", None), ("c", "b", "auto")):
+        run_cfg = dict(cfg, output_dir=os.path.join(root, "runs", out))
+        if resume:
+            run_cfg["resume_from"] = resume
+        configs[run] = os.path.join(root, f"cam_{run}.yaml")
+        with open(configs[run], "w") as fh:
+            yaml.safe_dump(run_cfg, fh)
+    return dict(configs=configs, config=cfg, pipe=pipe, fixture_s=fixture_s,
+                fixture_bytes=fixture_bytes, files_s=files_s, sizes=paths["sizes"])
+
+
+def run_train(config: str, steps: int) -> dict:
+    """``python -m synfmc_tpu_torch.scripts.train`` as a user runs it; its
+    last line, the metrics dict, with the process's wall seconds."""
+    cmd = [sys.executable, "-m", "synfmc_tpu_torch.scripts.train", "--stage", "cam", "--config",
+           config, "--max-steps", str(steps)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"train-files: {' '.join(cmd[3:])}: rc {proc.returncode}\n"
+                             f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    out = ast.literal_eval(proc.stdout.strip().splitlines()[-1])
+    out["process_s"] = wall
+    return out
+
+
+def train_files(card: str) -> Counter:
+    """Phase train-files: the stage-2 trainer from files at full width, as
+    child processes: FILES_STEPS steps uninterrupted (run a); FILES_RESUME_AT
+    steps (b), then ``resume_from: auto`` to FILES_STEPS (c).  Checks the
+    parameters loaded from the files bit for bit, the launches per step, the
+    restored state bit for bit, the losses after the resume within
+    RESUME_LOSS_REL_TOL, and that run a's last cmcm-step-N.ckpt loads into
+    build_pipeline as pretrained_cm_path with the trainer's final pose
+    encoder and merge weights.  Returns the runs' launches."""
+    import shutil
+    import tempfile
+
+    from synfmc_tpu_torch.pipelines.factory import build_pipeline, cast_models_, init_models
+    from synfmc_tpu_torch.training import checkpoint as ckpt
+    from synfmc_tpu_torch.training.optim import make_optimizer
+    from synfmc_tpu_torch.training.params import partition_params, stage2_cmc_unet_trainable
+    from synfmc_tpu_torch.training.pretrained import load_pretrained
+    from synfmc_tpu_torch.training.steps import init_train_state
+    from synfmc_tpu_torch.training.trainers import checksum, restore_state
+
+    root = tempfile.mkdtemp(prefix="synfmc_train_files_")
+    try:
+        w = write_train_files(root)
+        cfg, pipe = w["config"], w.pop("pipe")
+        log(f"  fixture {FIXTURE['num_seqs']} x {FIXTURE['num_frames'] + 1} frames at "
+            f"{FIXTURE['height']}x{FIXTURE['width']}, {FIXTURE['num_objects']} objects, written "
+            f"in {w['fixture_s']:.1f} s ({w['fixture_bytes'] / 2**20:.1f} MiB); reference files "
+            f"in {w['files_s']:.1f} s ({sum(w['sizes'].values()) / 2**30:.2f} GiB)")
+
+        # the trainer's load, in process: every tensor the files hold, bit for bit
+        models = init_models(cfg, "cam", int(cfg["global_seed"]), "cuda")
+        load_pretrained(models, cfg, "cam")
+        cast_models_(models, torch.bfloat16)
+        n = 0
+        for name, src in (("unet", pipe.unet), ("vae", pipe.vae), ("text", pipe.text_encoder)):
+            want = dict(src.named_parameters())
+            got = {k: p for k, p in models[name].named_parameters()
+                   if name != "unet" or "_merge." not in k}
+            bad = [k for k, p in got.items() if not torch.equal(p, want[k])]
+            if bad:
+                raise AssertionError(f"train-files: {name}: {len(bad)} parameters differ from "
+                                     f"the files' source, e.g. {bad[:3]}")
+            n += len(got)
+        del pipe
+        trainable = {**partition_params(models["unet"], stage2_cmc_unet_trainable, "unet."),
+                     **partition_params(models["pose_encoder"], lambda k: True, "pose_encoder.")}
+        for name in ("vae", "text"):
+            partition_params(models[name], lambda k: False)
+        frozen_sum = checksum([p for m in models.values() for p in m.parameters()
+                               if not p.requires_grad])
+        log(f"  the trainer's load in process: {n} parameters equal to the files' source bit "
+            f"for bit (the pose merges and the pose encoder are seeded)")
+
+        runs = {"a": run_train(w["configs"]["a"], FILES_STEPS)}
+        runs["b"] = run_train(w["configs"]["b"], FILES_RESUME_AT)
+        runs["c"] = run_train(w["configs"]["c"], FILES_STEPS)
+        total = Counter()
+        for key, steps in (("a", FILES_STEPS), ("b", FILES_RESUME_AT),
+                           ("c", FILES_STEPS - FILES_RESUME_AT)):
+            r = runs[key]
+            if r["steps"] != steps + (FILES_RESUME_AT if key == "c" else 0):
+                raise AssertionError(f"train-files: run {key} took {r['steps']} steps")
+            if not np.isfinite(r["losses"]).all() or len(r["losses"]) != steps:
+                raise AssertionError(f"train-files: run {key} losses {r['losses']}")
+            want = {k: v * steps for k, v in TRAIN_PER_STEP.items()}
+            if r["launches"] != want:
+                raise AssertionError(f"train-files: run {key} launches {r['launches']} != {want}")
+            total.update(r["launches"])
+            f0, f1 = r["checksums"]["frozen"]
+            if not f0 == f1 == frozen_sum:
+                raise AssertionError(f"train-files: run {key} frozen checksum {f0} -> {f1}, "
+                                     f"the files' load {frozen_sum}")
+
+        # the resume: run c restored run b's last state bit for bit
+        saved = ckpt.restore_native(os.path.join(runs["b"]["run_dir"], "checkpoints",
+                                                 f"step-{FILES_RESUME_AT}"))
+        masters = {k: p.detach().float().clone() for k, p in trainable.items()}
+        state = init_train_state(trainable, make_optimizer(float(cfg["learning_rate"])), masters)
+        restore_state(state, saved)
+        bad = [k for k in trainable if not torch.equal(state.masters[k].cpu(), saved["masters"][k])
+               or not torch.equal(trainable[k], state.masters[k].to(trainable[k].dtype))]
+        exp_avg, exp_avg_sq = state.optimizer.moments()
+        bad += [k for k, m, v in zip(trainable, exp_avg, exp_avg_sq)
+                if not (torch.equal(m.cpu(), saved["exp_avg"][k])
+                        and torch.equal(v.cpu(), saved["exp_avg_sq"][k]))]
+        restored_sum = checksum(trainable.values())
+        if bad or restored_sum != runs["c"]["checksums"]["trainable"][0]:
+            raise AssertionError(f"train-files: restore: {len(bad)} tensors differ ({bad[:3]}); "
+                                 f"checksum {restored_sum} vs run c's "
+                                 f"{runs['c']['checksums']['trainable'][0]}")
+        want = np.asarray(runs["a"]["losses"][FILES_RESUME_AT:])
+        got = np.asarray(runs["c"]["losses"])
+        rel = np.abs(got - want) / np.abs(want)
+        before = np.abs(np.asarray(runs["b"]["losses"]) - runs["a"]["losses"][:FILES_RESUME_AT])
+        log(f"  resume: run c restored run b's step-{FILES_RESUME_AT} state bit for bit "
+            f"({len(trainable)} masters, moments, count {saved['count']}; run c's checksum of "
+            f"the working weights equal); losses a {['%.6f' % x for x in runs['a']['losses']]}, "
+            f"b {['%.6f' % x for x in runs['b']['losses']]}, c {['%.6f' % x for x in got]}; "
+            f"c vs a relative {['%.2e' % x for x in rel]} (limit {RESUME_LOSS_REL_TOL}); "
+            f"b vs a before the resume: max abs {before.max():.3e}")
+        if not (rel < RESUME_LOSS_REL_TOL).all():
+            raise AssertionError(f"train-files: losses after the resume {got} vs {want}")
+        del state, trainable, models, saved
+        torch.cuda.empty_cache()
+
+        # run a's last bundle through build_pipeline: the trainer's final weights
+        a_dir = runs["a"]["run_dir"]
+        final = ckpt.restore_native(os.path.join(a_dir, "checkpoints", f"step-{FILES_STEPS}"))
+        bundle = os.path.join(a_dir, "checkpoints", f"cmcm-step-{FILES_STEPS}.ckpt")
+        cm = build_pipeline(w["configs"]["a"], stage="cam", cm_ckpt=bundle,
+                            seed=int(cfg["global_seed"]))[0]
+        got = {**{"unet." + k: p for k, p in cm.unet.named_parameters() if "_merge." in k},
+               **{"pose_encoder." + k: p for k, p in cm.pose_encoder.named_parameters()}}
+        bad = [k for k, m in final["masters"].items()
+               if not torch.equal(got[k].cpu(), m.to(got[k].dtype))]
+        if set(got) != set(final["masters"]) or bad:
+            raise AssertionError(f"train-files: cmcm-step-{FILES_STEPS}.ckpt through "
+                                 f"build_pipeline: {len(bad)} tensors differ, e.g. {bad[:3]}")
+        log(f"  cmcm-step-{FILES_STEPS}.ckpt as pretrained_cm_path: build_pipeline's pose "
+            f"encoder and {sum('_merge.' in k for k in got)} merge tensors equal the trainer's "
+            f"final weights ({len(got)} tensors)")
+        del cm
+
+        a, c = runs["a"], runs["c"]
+        ms = lambda ts: ["%.1f" % (t * 1e3) for t in ts]
+        ckpts = [(k["step"], round(k["copy_s"], 3), round(k["write_s"], 2),
+                  round(k["bytes"] / 2**30, 3)) for k in a["checkpoints"]]
+        per_step = {k: v // FILES_STEPS for k, v in a["launches"].items()}
+        log(f"[train-files] run a ({FILES_STEPS} steps, batch {cfg['train_batch_size']}, "
+            f"{cfg['num_workers']} workers): process {a['process_s']:.1f} s, first step "
+            f"{a['first_step_s']:.2f} s after train(); step "
+            f"{statistics.median(a['step_s'][1:]) * 1e3:.1f} ms median of steps 2-{FILES_STEPS} "
+            f"{ms(a['step_s'])}; data wait {ms(a['data_s'])} ms; checkpoints (step, host copy "
+            f"s, write s, GiB) {ckpts}; peak {a['peak_gib']:.2f} GiB; launches per step "
+            f"{per_step}; resume (run c): process {c['process_s']:.1f} s, first step "
+            f"{c['first_step_s']:.2f} s after train(), data wait {ms(c['data_s'])} ms, peak "
+            f"{c['peak_gib']:.2f} GiB; {card}")
+        return total
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 _FAMILIES = (  # (family, substrings of the kernel name), first match wins
@@ -1874,6 +2130,7 @@ def main() -> int:
     if args[:1] == ["--passes"]:
         return passes_only(args[1] if len(args) > 1 else REPO)
     sys.path.insert(0, REPO)
+    from synfmc_tpu_torch.data import image
     from synfmc_tpu_torch.ops import _cuda
     from synfmc_tpu_torch.pipelines.factory import build_pipeline, randomize_pipeline_
 
@@ -1895,7 +2152,13 @@ def main() -> int:
             f"spill stores/loads: {', '.join(spills) or 'none'}")
     for src in _cuda.SOURCES:
         _cuda.load(src)
-    log(f"[build] {len(logs)} libraries in {time.perf_counter() - t0:.1f} s")
+    image.library()  # the data loader's PNG unfilter and resampler (host C++)
+    log(f"[build] {len(logs)} libraries in {time.perf_counter() - t0:.1f} s; "
+        f"{image.library_path().name}")
+    if "--train-files" in args:
+        log(TRAIN_FILES_HEAD)
+        train_files(card[0] if card else "")
+        return 0
 
     t0 = time.perf_counter()
     # seeded weights with every conditioning path live (no checkpoint files yet); the
@@ -1953,6 +2216,10 @@ def main() -> int:
     passes = [flash_bwd_passes(*key[1:5])
               for key in sorted(tr["seen"]["flash_bwd"], key=lambda k: -k[2])]
     log(f"[backward] flash_bwd passes by device time (level 0 first): {json.dumps(passes)}")
+
+    log(TRAIN_FILES_HEAD)
+    launches.update(train_files(card[0] if card else ""))
+    torch.cuda.empty_cache()
 
     # last, so that its child processes and its 3.5 GB of files touch no earlier measurement
     log("[entry] the command-line program and the daemon at full width, from reference-layout "

@@ -143,6 +143,25 @@ def init_structural_zeros_(models: dict, config: dict) -> dict:
     return models
 
 
+def init_models(config: dict, stage: str, seed: int, device) -> dict:
+    """The stage's modules on ``device`` in fp32, as the JAX package starts
+    them: seeded random weights from one generator in build order (unet,
+    vae, text, pose encoder, adapter), then its structural zeros."""
+    with torch.device(device):
+        models = build_models(config, stage)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    for module in models.values():
+        init_random_(module, gen)
+    return init_structural_zeros_(models, config)
+
+
+def cast_models_(models: dict, dtype: torch.dtype) -> dict:
+    """Every module to ``dtype`` and channels-last, in place."""
+    for module in models.values():
+        module.to(dtype=dtype, memory_format=torch.channels_last)
+    return models
+
+
 def randomize_pipeline_(pipe: AnimationPipeline, seed: int) -> AnimationPipeline:
     """``init_random_`` over every module of ``pipe`` from one generator seeded
     with ``seed``, in build order (unet, vae, text, pose encoder, adapter):
@@ -195,14 +214,8 @@ def build_pipeline(config, *, stage: Optional[str] = None, seed: int = 42,
     dev = resolve_device(device)
     if dtype is None:
         dtype = torch.bfloat16 if config.get("mixed_precision_training", True) else torch.float32
-    with torch.device(dev):
-        models = build_models(config, stage)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    for module in models.values():
-        init_random_(module, gen)
-    init_structural_zeros_(models, config)
-    for module in models.values():
-        module.to(dtype=dtype, memory_format=torch.channels_last)
+    models = init_models(config, stage, seed, dev)
+    cast_models_(models, dtype)
     models, meta = load_pretrained(models, config, stage, logger)
     if omcm_ckpt:
         bundle = torch_load_state_dict(omcm_ckpt)

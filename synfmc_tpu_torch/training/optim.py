@@ -73,6 +73,25 @@ class ClipAdamW:
         self.count += 1
         return norm
 
+    def moments(self) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
+        """Each tensor's AdamW moments (``exp_avg``, ``exp_avg_sq``; zeros
+        before the first update), in the order of ``params``."""
+        state = self.adamw.state
+        pick = lambda p, key: state[p][key] if p in state else torch.zeros_like(p)
+        return ([pick(p, "exp_avg") for p in self.params],
+                [pick(p, "exp_avg_sq") for p in self.params])
+
+    def load_moments(self, count: int, exp_avg, exp_avg_sq) -> None:
+        """Restore the update count and the moments, as ``torch.optim.AdamW``
+        keeps them (its ``step`` a float32 scalar on the CPU)."""
+        for p, m, v in zip(self.params, exp_avg, exp_avg_sq, strict=True):
+            self.adamw.state[p] = {
+                "step": torch.tensor(float(count), dtype=torch.float32),
+                "exp_avg": m.to(device=p.device, dtype=p.dtype).clone(),
+                "exp_avg_sq": v.to(device=p.device, dtype=p.dtype).clone(),
+            }
+        self.count = count
+
 
 def make_optimizer(learning_rate: float, adam_beta1: float = 0.9, adam_beta2: float = 0.999,
                    adam_weight_decay: float = 1e-2, adam_epsilon: float = 1e-8,

@@ -177,6 +177,8 @@ def test_port_imports_no_jax():
     modules = [m.removesuffix(".__init__") for m in modules]
     assert "synfmc_tpu_torch.scripts.generate" in modules
     assert "synfmc_tpu_torch.scripts.serve" in modules
+    assert "synfmc_tpu_torch.scripts.train" in modules
+    assert "synfmc_tpu_torch.data.dataset" in modules
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
