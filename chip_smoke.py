@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--profile]
     python3 chip_smoke.py --train-files
+    python3 chip_smoke.py --train-stages
     python3 chip_smoke.py --passes [ROOT]
 
 Phases, each raising on failure (non-zero exit):
@@ -69,15 +70,39 @@ Phases, each raising on failure (non-zero exit):
                 masters, 8 loader workers) on a fixture dataset (4 sequences x
                 65 frames at 512x768, 3 objects) and the serving phase's
                 weights as reference-layout SD1.5 / motion-module / LoRA files,
-                checkpointing every 2 steps: 6 steps; 3 steps, then
-                resume_from: auto to 6.  The files' tensors reach the model bit
+                checkpointing every 2 steps: 4 steps; 2 steps, then
+                resume_from: auto to 4.  The files' tensors reach the model bit
                 for bit, launches per step exact, run c's restored state equal
                 to run b's saved one bit for bit, losses after the resume
                 within 1e-2 relative of run a's, run a's last cmcm-step-6.ckpt
                 through build_pipeline equal to its final weights; first-step
                 seconds, data wait and step ms, checkpoint seconds and bytes,
                 peak;
- 10. entry    - the user's entry points at full width, last: phase 6's
+ 10. train-stages - the three stages chained as a user runs them, on the
+                same files: first, in process with seeded weights, one
+                stage-1 step (configs/lora.yaml: 16 single frames 256x384),
+                a stage-1 validation render (one prompt, F = 1, the CFG
+                pair) and one stage-3 step (configs/obj.yaml), recorded:
+                launches exact (LORA_PER_STEP, OBJ_PER_STEP), a finite
+                non-zero gradient for every trainable tensor (the
+                ObjectAdapter's last stage zero: it reaches no loss), and
+                every kernel at each recorded shape no earlier phase held,
+                against its plain version as in phases 3 and 8; then
+                `python -m synfmc_tpu_torch.scripts.train` child processes:
+                stage 1 on a 16-sequence fixture (4 steps, validation at
+                step 2) -> stage 2 loading its lora-step-4.ckpt (3 steps)
+                -> stage 3 loading that cmcm-step-3.ckpt (4 steps,
+                validation at step 2: the GIFs, masks and camera labels)
+                -> stage 3 resumed from its step-2 state to 4 (losses and
+                final state equal bit for bit); then stage 3 in process
+                with gradient_accumulation_steps 2 and remat "full" and
+                "dots" (3 steps each).  Launches per step exact in every
+                run (remat's recompute counted), frozen weights unchanged,
+                each loaded bundle named in the next stage's log, no failed
+                validation; ms per step, ms per optimizer step with
+                accumulation, peaks with and without remat, first-step
+                seconds, checkpoint bytes, validation seconds;
+ 11. entry    - the user's entry points at full width, last: phase 6's
                 weights (rebuilt from the same seed) written as
                 reference-layout files (an SD1.5 diffusers directory with
                 safetensors, a .bin text encoder
@@ -99,7 +124,7 @@ one extra train step: device time by kernel family and the device's idle
 share.  The last two lines of stdout are the kernels' JSON summary and
 {"ok": true, "device": {...}}.
 
-``--train-files`` builds and runs phase 9 alone.
+``--train-files`` builds and runs phase 9 alone, ``--train-stages`` phase 10.
 
 ``--passes [ROOT]`` only times K1 by kernel at its three keys (32x1536x320,
 16x1536x320, 32x384x640, 8 heads) beside SDPA's forward kernels, and the
@@ -1023,7 +1048,7 @@ def train_compose():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = tiny_config(mixed_precision=False)
-    scfg = step_config(cfg)
+    scfg = step_config(cfg, "cam")
     schedule = DiffusionSchedule.from_config(**cfg["noise_scheduler_kwargs"])
     cpu = build_models(cfg)
     gen = torch.Generator().manual_seed(0)
@@ -1750,7 +1775,7 @@ def train_main(profile: bool):
 # phase train-files: the trainer from files, as a user runs it
 # ---------------------------------------------------------------------------
 
-FILES_STEPS, FILES_RESUME_AT = 6, 3
+FILES_STEPS, FILES_RESUME_AT = 4, 2
 TRAIN_FILES_HEAD = (
     f"[train-files] python -m synfmc_tpu_torch.scripts.train --stage cam on a fixture dataset "
     f"and reference-layout files: batch 1, {FRAMES} frames {HEIGHT}x{WIDTH}, bf16 with fp32 "
@@ -1809,14 +1834,14 @@ def write_train_files(root: str) -> dict:
         configs[run] = os.path.join(root, f"cam_{run}.yaml")
         with open(configs[run], "w") as fh:
             yaml.safe_dump(run_cfg, fh)
-    return dict(configs=configs, config=cfg, pipe=pipe, fixture_s=fixture_s,
+    return dict(configs=configs, config=cfg, data=data, pipe=pipe, fixture_s=fixture_s,
                 fixture_bytes=fixture_bytes, files_s=files_s, sizes=paths["sizes"])
 
 
-def run_train(config: str, steps: int) -> dict:
+def run_train(config: str, steps: int, stage: str = "cam") -> dict:
     """``python -m synfmc_tpu_torch.scripts.train`` as a user runs it; its
     last line, the metrics dict, with the process's wall seconds."""
-    cmd = [sys.executable, "-m", "synfmc_tpu_torch.scripts.train", "--stage", "cam", "--config",
+    cmd = [sys.executable, "-m", "synfmc_tpu_torch.scripts.train", "--stage", stage, "--config",
            config, "--max-steps", str(steps)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=900)
@@ -1829,17 +1854,27 @@ def run_train(config: str, steps: int) -> dict:
     return out
 
 
-def train_files(card: str) -> Counter:
-    """Phase train-files: the stage-2 trainer from files at full width, as
-    child processes: FILES_STEPS steps uninterrupted (run a); FILES_RESUME_AT
-    steps (b), then ``resume_from: auto`` to FILES_STEPS (c).  Checks the
-    parameters loaded from the files bit for bit, the launches per step, the
-    restored state bit for bit, the losses after the resume within
-    RESUME_LOSS_REL_TOL, and that run a's last cmcm-step-N.ckpt loads into
-    build_pipeline as pretrained_cm_path with the trainer's final pose
-    encoder and merge weights.  Returns the runs' launches."""
+def prepare_train_files(root: str) -> dict:
+    """write_train_files into ``root``, logged."""
+    w = write_train_files(root)
+    log(f"  fixture {FIXTURE['num_seqs']} x {FIXTURE['num_frames'] + 1} frames at "
+        f"{FIXTURE['height']}x{FIXTURE['width']}, {FIXTURE['num_objects']} objects, written "
+        f"in {w['fixture_s']:.1f} s ({w['fixture_bytes'] / 2**20:.1f} MiB); reference files "
+        f"in {w['files_s']:.1f} s ({sum(w['sizes'].values()) / 2**30:.2f} GiB)")
+    return w
+
+
+def train_files(card: str, root: str, w: dict) -> Counter:
+    """Phase train-files: the stage-2 trainer from the files ``w`` (in
+    ``root``) at full width, as child processes: FILES_STEPS steps
+    uninterrupted (run a); FILES_RESUME_AT steps (b), then ``resume_from:
+    auto`` to FILES_STEPS (c).  Checks the parameters loaded from the files
+    bit for bit, the launches per step, the restored state bit for bit, the
+    losses after the resume within RESUME_LOSS_REL_TOL, and that run a's last
+    cmcm-step-N.ckpt loads into build_pipeline as pretrained_cm_path with the
+    trainer's final pose encoder and merge weights.  Deletes its runs after;
+    returns their launches."""
     import shutil
-    import tempfile
 
     from synfmc_tpu_torch.pipelines.factory import build_pipeline, cast_models_, init_models
     from synfmc_tpu_torch.training import checkpoint as ckpt
@@ -1849,14 +1884,8 @@ def train_files(card: str) -> Counter:
     from synfmc_tpu_torch.training.steps import init_train_state
     from synfmc_tpu_torch.training.trainers import checksum, restore_state
 
-    root = tempfile.mkdtemp(prefix="synfmc_train_files_")
     try:
-        w = write_train_files(root)
         cfg, pipe = w["config"], w.pop("pipe")
-        log(f"  fixture {FIXTURE['num_seqs']} x {FIXTURE['num_frames'] + 1} frames at "
-            f"{FIXTURE['height']}x{FIXTURE['width']}, {FIXTURE['num_objects']} objects, written "
-            f"in {w['fixture_s']:.1f} s ({w['fixture_bytes'] / 2**20:.1f} MiB); reference files "
-            f"in {w['files_s']:.1f} s ({sum(w['sizes'].values()) / 2**30:.2f} GiB)")
 
         # the trainer's load, in process: every tensor the files hold, bit for bit
         models = init_models(cfg, "cam", int(cfg["global_seed"]), "cuda")
@@ -1968,7 +1997,388 @@ def train_files(card: str) -> Counter:
             f"{c['peak_gib']:.2f} GiB; {card}")
         return total
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(os.path.join(root, "runs"), ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# phase train-stages: stage 1 -> stage 2 -> stage 3 from files, as a user
+# chains them
+# ---------------------------------------------------------------------------
+
+# Kernel launches of one train step at full width, by stage (batch 1 and
+# 16 frames, or stage 1's 16 single frames).  Stage 1's UNet has no motion
+# modules: K1 x10 and the mid block's 24-token self-attention on K2, each
+# with its backward (every LoRA trains), and K3 x61 plus the VAE encoder's
+# x22.  Stage 3 runs stage 2's forward; its backward starts at the first traj
+# feature (after down_blocks[0]'s two layers) and skips the frozen pose
+# encoder.  Remat runs the UNet's forward twice, the backward once.
+LORA_PER_STEP = {"flash": 10, "flash_bwd": 10, "temporal": 1, "temporal_bwd": 1,
+                 "group_norm": 83}
+OBJ_PER_STEP = {"flash": 10, "flash_bwd": 8, "temporal": 49, "temporal_bwd": 37,
+                "group_norm": 103}
+OBJ_REMAT_PER_MICRO = {"flash": 20, "flash_bwd": 8, "temporal": 90, "temporal_bwd": 37,
+                       "group_norm": 184}
+LORA_YAML = os.path.join(REPO, "configs", "lora.yaml")
+# Stage 1's batch of 16 clips needs 16 sequences; a clip gives one frame.
+LORA_FIXTURE = dict(num_seqs=16, num_objects=N_OBJECTS, num_frames=8, height=2 * HEIGHT,
+                    width=2 * WIDTH)
+STAGE_STEPS = {"lora": 4, "cam": 3, "obj": 4}
+OBJ_RESUME_AT = VALIDATION_STEP = ACCUM = 2
+REMAT_STEPS = 3
+TRAIN_STAGES_HEAD = (
+    f"[train-stages] python -m synfmc_tpu_torch.scripts.train chained on the files: stage 1 "
+    f"(configs/lora.yaml, batch 16 single frames {HEIGHT}x{WIDTH}, {STAGE_STEPS['lora']} steps, "
+    f"validation at step {VALIDATION_STEP}) -> stage 2 (its LoRA, {STAGE_STEPS['cam']} steps) -> "
+    f"stage 3 (configs/obj.yaml on that CMC bundle, {STAGE_STEPS['obj']} steps, validation at "
+    f"step {VALIDATION_STEP}; resumed from step {OBJ_RESUME_AT}); then stage 3 with "
+    f"gradient_accumulation_steps {ACCUM} and remat 'full' and 'dots' in process, "
+    f"{REMAT_STEPS} steps each")
+
+
+def _stage_models(config: dict, stage: str):
+    """The stage's modules at full width on the card, bf16, every weight
+    seeded (the structural zeros too, so that every path is live)."""
+    from synfmc_tpu_torch.pipelines.factory import cast_models_, init_models, init_random_
+
+    models = init_models(config, stage, 0, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for module in models.values():
+        init_random_(module, gen)
+    return cast_models_(models, torch.bfloat16)
+
+
+def _unreached_adapter_names(adapter) -> set:
+    """The ObjectAdapter's last stage: its features go to the 4th down
+    block, which takes none, so their gradient is zero in both packages."""
+    last = len(adapter.body) // adapter.nums_rb - 1
+    first = last * adapter.nums_rb
+    return {"adapter." + n for n, _ in adapter.named_parameters()
+            if n.startswith(f"zero_conv_out_list.{last}.")
+            or any(n.startswith(f"body.{first + j}.") for j in range(adapter.nums_rb))}
+
+
+def record_stage_shapes() -> dict:
+    """Recorded, in process, at full width with seeded weights on synthetic
+    batches: one stage-1 grads call at configs/lora.yaml's batch (16 single
+    frames, 256x384), one stage-1 validation render (one prompt, F = 1, the
+    CFG pair, 2 DDIM steps, a one-frame decode), one stage-3 grads call
+    (configs/obj.yaml, batch 1, 16 frames, 3 objects).  Checks each grads
+    call's launches against LORA_PER_STEP / OBJ_PER_STEP and a finite
+    non-zero gradient for every trainable tensor (the ObjectAdapter's last
+    stage: zero, as it reaches no loss).  Returns the recorder's keys by
+    kernel."""
+    import shutil
+    import tempfile
+
+    import yaml
+
+    from synfmc_tpu_torch.data.tokenizer import HashTokenizer
+    from synfmc_tpu_torch.diffusion.scheduler import DiffusionSchedule
+    from synfmc_tpu_torch.training import steps as st
+    from synfmc_tpu_torch.training.trainers import _trainable_set, step_config
+    from synfmc_tpu_torch.training.validation import run_validation
+
+    tok = HashTokenizer()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    seen = {}
+
+    def merge(rec):
+        for k, v in rec.seen.items():
+            seen.setdefault(k, Counter()).update(v)
+
+    def grads_check(stage, trainable, grads, allowed_zero=frozenset()):
+        bad = [n for n, g in grads.items() if not bool(torch.isfinite(g).all())
+               or (n not in allowed_zero and not bool(g.abs().max() > 0))
+               or (n in allowed_zero and bool(g.abs().max() > 0))]
+        if bad or set(grads) != set(trainable):
+            raise AssertionError(f"train-stages: {stage} gradients non-finite, zero or "
+                                 f"unexpected: {bad[:10]}")
+        return len(grads)
+
+    with open(LORA_YAML) as fh:
+        cfg = yaml.safe_load(fh)
+    cfg["validation_data"].update(num=1, num_inference_steps=2)
+    models = _stage_models(cfg, "lora")
+    trainable = _trainable_set("lora", models, cfg)
+    scfg = step_config(cfg, "lora")
+    schedule = DiffusionSchedule.from_config(**cfg["noise_scheduler_kwargs"])
+    b = int(cfg["train_batch_size"])
+    batch = {"pixel_values": torch.rand(b, HEIGHT, WIDTH, 3, device="cuda", generator=gen) * 2 - 1,
+             "input_ids": torch.as_tensor(tok(["a red robot stands in a meadow"] * b),
+                                          device="cuda").long(),
+             "null_ids": torch.as_tensor(tok([""])[0], device="cuda").long()}
+    grads_fn = st.make_lora_grads_fn(models["unet"], models["vae"], models["text"], schedule,
+                                     scfg)
+    draws = st.draw_lora(gen, batch, scfg, schedule)
+    with Recorder("lora") as rec:
+        grads, _ = grads_fn(trainable, batch, draws)
+        torch.cuda.synchronize()
+    n_lora = grads_check("lora", trainable, grads)
+    merge(rec)
+    del grads
+    tmp = tempfile.mkdtemp(prefix="synfmc_val_")
+    try:
+        with Recorder("lora_val") as rec:
+            files = run_validation("lora", tmp, 0, models, cfg, tok, schedule, device="cuda")
+            torch.cuda.synchronize()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if files != ["validation.png"]:
+        raise AssertionError(f"train-stages: stage-1 validation wrote {files}")
+    merge(rec)
+    del models, trainable, grads_fn, batch
+    torch.cuda.empty_cache()
+
+    with open(OBJ_YAML) as fh:
+        cfg = yaml.safe_load(fh)
+    models = _stage_models(cfg, "obj")
+    trainable = _trainable_set("obj", models, cfg)
+    scfg = step_config(cfg, "obj")
+    schedule = DiffusionSchedule.from_config(**cfg["noise_scheduler_kwargs"])
+    raw = next(synthetic_batches(7))
+    batch = {k: torch.as_tensor(np.asarray(v), device="cuda") for k, v in raw.items()
+             if k not in ("captions", "background_captions")}
+    batch.update(pixel_values=batch["pixel_values"].float(),
+                 input_ids=torch.as_tensor(tok(raw["captions"]), device="cuda").long(),
+                 background_ids=torch.as_tensor(tok(raw["background_captions"]),
+                                                device="cuda").long(),
+                 null_ids=torch.as_tensor(tok([""])[0], device="cuda").long())
+    info, masks = objects(11, FRAMES, HEIGHT, WIDTH)
+    batch.update(obj_info=torch.as_tensor(info, device="cuda").float(),
+                 obj_masks=torch.as_tensor(masks, device="cuda").float())
+    grads_fn = st.make_obj_grads_fn(models["unet"], models["pose_encoder"], models["adapter"],
+                                    models["vae"], models["text"], schedule, scfg)
+    draws = st.draw_obj(gen, batch, scfg, schedule)
+    draws.om_uniform.fill_(1.0)  # keep the objects: every adapter path live
+    with Recorder("obj") as rec:
+        grads, _ = grads_fn(trainable, batch, draws)
+        torch.cuda.synchronize()
+    n_obj = grads_check("obj", trainable, grads, _unreached_adapter_names(models["adapter"]))
+    merge(rec)
+    del models, trainable, grads_fn, batch, grads
+    torch.cuda.empty_cache()
+
+    for stage, want in (("lora", LORA_PER_STEP), ("obj", OBJ_PER_STEP)):
+        got = {k: sum(n for key, n in v.items() if key[0] == stage) for k, v in seen.items()
+               if k != "group_norm_bwd"}
+        if got != want:
+            raise AssertionError(f"train-stages: {stage} step launches {got} != {want}")
+    val = {k: sum(n for key, n in v.items() if key[0] == "lora_val") for k, v in seen.items()}
+    log(f"  recorded in process: a stage-1 step ({n_lora} LoRA tensors, finite non-zero "
+        f"gradients; launches {LORA_PER_STEP}), a stage-1 validation render (launches {val}), "
+        f"a stage-3 step ({n_obj} adapter tensors, finite gradients, zero exactly on the "
+        f"adapter's last stage; launches {OBJ_PER_STEP})")
+    return seen
+
+
+def _new_keys(seen: dict, checked: set) -> dict:
+    """The recorded keys whose shape (all but the stage label) no check has
+    held yet, by kernel; each shape once."""
+    out = {}
+    for kind, keys in seen.items():
+        fresh = Counter()
+        for key, n in keys.items():
+            if (kind, key[1:]) not in checked:
+                checked.add((kind, key[1:]))
+                fresh[key] = n
+        out[kind] = fresh
+    return out
+
+
+def _write_yaml(path: str, cfg: dict) -> str:
+    import yaml
+
+    with open(path, "w") as fh:
+        yaml.safe_dump(cfg, fh)
+    return path
+
+
+def _check_run(name: str, r: dict, steps: int, per_step: dict, resumed_from: int = 0) -> None:
+    if r["steps"] != steps or len(r["losses"]) != steps - resumed_from:
+        raise AssertionError(f"train-stages: {name} took {r['steps']} steps "
+                             f"({len(r['losses'])} losses)")
+    if not np.isfinite(r["losses"]).all():
+        raise AssertionError(f"train-stages: {name} losses {r['losses']}")
+    want = {k: v * (steps - resumed_from) for k, v in per_step.items()}
+    if r["launches"] != want:
+        raise AssertionError(f"train-stages: {name} launches {r['launches']} != {want}")
+    (t0, t1), (f0, f1) = r["checksums"]["trainable"], r["checksums"]["frozen"]
+    if t0 == t1 or f0 != f1:
+        raise AssertionError(f"train-stages: {name} trainable checksum {t0} -> {t1}, frozen "
+                             f"{f0} -> {f1}")
+
+
+def _check_validation(name: str, r: dict, want) -> float:
+    log_txt = open(os.path.join(r["run_dir"], "log.txt")).read()
+    v = r["validations"]
+    if (len(v) != 1 or v[0]["step"] != VALIDATION_STEP or v[0]["error"]
+            or re.search(r"validation at step \d+ failed", log_txt)):
+        raise AssertionError(f"train-stages: {name} validation {v}")
+    missing = [f for f in want if f not in v[0]["files"]]
+    if missing:
+        raise AssertionError(f"train-stages: {name} validation lacks {missing}: {v[0]['files']}")
+    return v[0]["s"]
+
+
+def _gib(x) -> str:
+    return "not measured" if x is None else f"{x:.2f} GiB"
+
+
+def _stage_line(name: str, r: dict, accum: int = 1) -> str:
+    ms = statistics.median(r["step_s"][1:]) * 1e3
+    val = (f", validation {r['validations'][0]['s']:.2f} s ({len(r['validations'][0]['files'])} "
+           f"files, peak {_gib(r['validations'][0]['peak_gib'])})" if r["validations"] else "")
+    ck = sum(c["bytes"] for c in r["checkpoints"])
+    proc = f"process {r['process_s']:.1f} s, " if "process_s" in r else ""
+    return (f"{name}: {proc}first step {r['first_step_s']:.2f} s after train(); "
+            f"{ms:.1f} ms per {'optimizer ' if accum > 1 else ''}step (median of steps 2+; "
+            f"{['%.1f' % (t * 1e3) for t in r['step_s']]}; data wait "
+            f"{['%.1f' % (t * 1e3) for t in r['data_s']]}); peak {_gib(r['peak_gib'])}; "
+            f"checkpoints {len(r['checkpoints'])}, {ck / 2**30:.3f} GiB{val}; trainable "
+            f"{r['trainable_params']:,}")
+
+
+def train_stages(card: str, root: str, w: dict, rates, traced, checked: set) -> tuple:
+    """Phase train-stages: the three stages chained from the files ``w`` (in
+    ``root``) as a user runs them, then accumulation with remat.  Records and
+    checks the kernels at the stages' new shapes first (``checked``: the
+    (kernel, shape) pairs already held).  Returns (launches, result rows)."""
+    import shutil
+
+    import yaml
+
+    from synfmc_tpu_torch.data.fixture import build_synthetic_dataset
+    from synfmc_tpu_torch.training import checkpoint as ckpt
+    from synfmc_tpu_torch.training.trainers import train
+
+    w.pop("pipe", None)
+    torch.cuda.empty_cache()
+    seen = record_stage_shapes()
+    fresh = _new_keys(seen, checked)
+    log(f"  kernels at the stages' shapes no earlier phase checked: "
+        f"{ {k: len(v) for k, v in fresh.items()} }")
+    results = check_kernels({k: fresh[k] for k in ("flash", "temporal", "group_norm")}, rates,
+                            traced, fp32=False)
+    results.update(check_bwd({k: fresh[k] for k in ("flash_bwd", "temporal_bwd")}, rates))
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    lora_data = build_synthetic_dataset(os.path.join(root, "lora_data"), **LORA_FIXTURE)
+    log(f"  stage-1 fixture {LORA_FIXTURE['num_seqs']} x {LORA_FIXTURE['num_frames'] + 1} frames "
+        f"written in {time.perf_counter() - t0:.1f} s; disk free "
+        f"{shutil.disk_usage(root).free / 2**30:.1f} GiB")
+    files = dict(pretrained_model_path=w["config"]["pretrained_model_path"],
+                 strict_pretrained=True, logger_interval=1, checkpointing_steps=100)
+    val = dict(enable_validation=True, validation_steps=-1,
+               validation_steps_tuple=[VALIDATION_STEP])
+    runs_dir = os.path.join(root, "stage_runs")
+    total = Counter()
+
+    with open(LORA_YAML) as fh:
+        lora_cfg = yaml.safe_load(fh)
+    lora_cfg.update(files, **val, output_dir=os.path.join(runs_dir, "lora"))
+    lora_cfg["validation_data"].update(num=1, num_inference_steps=STEPS)
+    lora_cfg["train_data"]["params"].update(lora_data, appearance_percentage=APPEARANCE)
+    lora = run_train(_write_yaml(os.path.join(root, "stage_lora.yaml"), lora_cfg),
+                     STAGE_STEPS["lora"], "lora")
+    _check_run("stage 1", lora, STAGE_STEPS["lora"], LORA_PER_STEP)
+    _check_validation("stage 1", lora, ["validation.png"])
+    if not os.path.exists(os.path.join(lora["run_dir"], "sanity_check", "batch.png")):
+        raise AssertionError("train-stages: stage 1 wrote no sanity_check/batch.png")
+    lora_bundle = os.path.join(lora["run_dir"], "checkpoints",
+                               f"lora-step-{STAGE_STEPS['lora']}.ckpt")
+
+    cam_cfg = dict(w["config"], lora_ckpt=lora_bundle, checkpointing_steps=100,
+                   output_dir=os.path.join(runs_dir, "cam"))
+    cam = run_train(_write_yaml(os.path.join(root, "stage_cam.yaml"), cam_cfg),
+                    STAGE_STEPS["cam"], "cam")
+    _check_run("stage 2", cam, STAGE_STEPS["cam"], TRAIN_PER_STEP)
+    cmc_bundle = os.path.join(cam["run_dir"], "checkpoints",
+                              f"cmcm-step-{STAGE_STEPS['cam']}.ckpt")
+
+    with open(OBJ_YAML) as fh:
+        obj_cfg = yaml.safe_load(fh)
+    obj_cfg.update(files, **val, motion_module_ckpt=w["config"]["motion_module_ckpt"],
+                   lora_ckpt=lora_bundle, pretrained_cm_path=cmc_bundle,
+                   checkpointing_steps=OBJ_RESUME_AT, output_dir=os.path.join(runs_dir, "obj_a"))
+    obj_cfg["validation_data"].update(num=1, num_inference_steps=STEPS)
+    obj_cfg["train_data"]["params"].update(w["data"], appearance_percentage=APPEARANCE)
+    obj = run_train(_write_yaml(os.path.join(root, "stage_obj.yaml"), obj_cfg),
+                    STAGE_STEPS["obj"], "obj")
+    _check_run("stage 3", obj, STAGE_STEPS["obj"], OBJ_PER_STEP)
+    _check_validation("stage 3", obj, ["real-0.gif", "cm-0.gif", "omcm-0.gif", "label_0.txt",
+                                       "cam_label_compute_0.txt", "cam_label_gt_0.txt"]
+                      + [f"0_masks/{i}.png" for i in range(FRAMES)]
+                      + [f"0_real_masks/{i}.png" for i in range(FRAMES)])
+    for name, r, wanted in (("stage 2", cam, f"loaded stage-1 LoRA from {lora_bundle}"),
+                            ("stage 3", obj, f"loaded stage-1 LoRA from {lora_bundle}"),
+                            ("stage 3", obj, f"loaded stage-2 CMC from {cmc_bundle}")):
+        if wanted not in open(os.path.join(r["run_dir"], "log.txt")).read():
+            raise AssertionError(f"train-stages: {name}'s log lacks '{wanted}'")
+
+    # the resume: from run a's step-2 state to its last step, bit for bit
+    resume_cfg = dict(obj_cfg, enable_validation=False, output_dir=os.path.join(runs_dir, "obj_c"),
+                      resume_from=os.path.join(obj["run_dir"], "checkpoints",
+                                               f"step-{OBJ_RESUME_AT}"))
+    resumed = run_train(_write_yaml(os.path.join(root, "stage_obj_c.yaml"), resume_cfg),
+                        STAGE_STEPS["obj"], "obj")
+    _check_run("stage 3 resumed", resumed, STAGE_STEPS["obj"], OBJ_PER_STEP, OBJ_RESUME_AT)
+    want_losses = obj["losses"][OBJ_RESUME_AT:]
+    a_end = ckpt.restore_native(os.path.join(obj["run_dir"], "checkpoints",
+                                             f"step-{STAGE_STEPS['obj']}"))
+    c_end = ckpt.restore_native(os.path.join(resumed["run_dir"], "checkpoints",
+                                             f"step-{STAGE_STEPS['obj']}"))
+    bad = [k for part in ("masters", "exp_avg", "exp_avg_sq") for k in a_end[part]
+           if not torch.equal(a_end[part][k], c_end[part][k])]
+    if resumed["losses"] != want_losses or bad or a_end["count"] != c_end["count"]:
+        raise AssertionError(f"train-stages: the resume: losses {resumed['losses']} vs "
+                             f"{want_losses}; {len(bad)} state tensors differ ({bad[:3]})")
+    log(f"  stage-3 resume from step {OBJ_RESUME_AT}: losses "
+        f"{['%.6f' % x for x in resumed['losses']]} "
+        f"equal run a's bit for bit, and the step-{STAGE_STEPS['obj']} state "
+        f"({len(a_end['masters'])} masters, moments, count {c_end['count']}) too")
+    del a_end, c_end
+    for r in (lora, cam, obj, resumed):
+        total.update(r["launches"])
+        total.update({k: n for v in r["validations"] for k, n in v["launches"].items()})
+
+    # accumulation with remat, in process: launches by step, peak against run a's
+    remat = {}
+    for policy in ("full", "dots"):
+        counts = counters()
+        per_step = [{k: fn.launches for k, fn in counts.items()}]
+
+        def on_step(state, metrics, draws):
+            per_step.append({k: fn.launches for k, fn in counts.items()})
+
+        cfg = dict(obj_cfg, enable_validation=False, gradient_accumulation_steps=ACCUM,
+                   gradient_checkpointing=True, gradient_checkpointing_policy=policy,
+                   checkpointing_steps=100, output_dir=os.path.join(runs_dir, f"obj_{policy}"))
+        r = train("obj", cfg, max_steps=REMAT_STEPS, on_step=on_step)
+        _check_run(f"stage 3 remat {policy}", r, REMAT_STEPS,
+                   {k: v * ACCUM for k, v in OBJ_REMAT_PER_MICRO.items()})
+        steps = [{k: b[k] - a[k] for k in b} for a, b in zip(per_step, per_step[1:])]
+        want = {k: v * ACCUM for k, v in OBJ_REMAT_PER_MICRO.items()}
+        if steps != [want] * REMAT_STEPS:
+            raise AssertionError(f"train-stages: remat {policy} launches by step {steps}")
+        total.update(r["launches"])
+        remat[policy] = r
+        shutil.rmtree(cfg["output_dir"], ignore_errors=True)
+        torch.cuda.empty_cache()
+
+    lines = [_stage_line("stage 1 (lora)", lora), _stage_line("stage 2 (cam)", cam),
+             _stage_line("stage 3 (obj)", obj), _stage_line("stage 3 resumed", resumed)]
+    lines += [_stage_line(f"stage 3, accumulation {ACCUM}, remat {p}", r, ACCUM)
+              for p, r in remat.items()]
+    for line in lines:
+        log(f"[train-stages] {line}")
+    log(f"[train-stages] stage 3 peak: {_gib(obj['peak_gib'])} without remat (batch 1), "
+        f"{_gib(remat['full']['peak_gib'])} with 'full', {_gib(remat['dots']['peak_gib'])} "
+        f"with 'dots' (accumulation {ACCUM}: one micro-batch alive plus the fp32 gradient sums); "
+        f"launches per step: lora {LORA_PER_STEP}, obj {OBJ_PER_STEP}, obj remat per micro-batch "
+        f"{OBJ_REMAT_PER_MICRO}; {card}")
+    shutil.rmtree(runs_dir, ignore_errors=True)
+    return total, results
 
 
 _FAMILIES = (  # (family, substrings of the kernel name), first match wins
@@ -2097,7 +2507,7 @@ def summarise(results, launches):
             "bound_by": "bytes" if hot["bound_by"] == "bytes" else "operations",
             "bound_term": hot["bound_by"], "library_ms": hot["library_ms"],
             "device_ms": hot["device_ms"], "library_device_ms": hot["library_device_ms"],
-            "shape": list(hot["key"][1:]),
+            "shape": list(hot["key"][1:]), "shapes_checked": len(rows),
         })
     return summary
 
@@ -2155,9 +2565,20 @@ def main() -> int:
     image.library()  # the data loader's PNG unfilter and resampler (host C++)
     log(f"[build] {len(logs)} libraries in {time.perf_counter() - t0:.1f} s; "
         f"{image.library_path().name}")
-    if "--train-files" in args:
-        log(TRAIN_FILES_HEAD)
-        train_files(card[0] if card else "")
+    if "--train-files" in args or "--train-stages" in args:
+        import shutil
+        import tempfile
+
+        root = tempfile.mkdtemp(prefix="synfmc_train_files_")
+        try:
+            log(TRAIN_FILES_HEAD if "--train-files" in args else TRAIN_STAGES_HEAD)
+            w = prepare_train_files(root)
+            if "--train-files" in args:
+                train_files(card[0] if card else "", root, w)
+            else:
+                train_stages(card[0] if card else "", root, w, rates, set(), set())
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
         return 0
 
     t0 = time.perf_counter()
@@ -2217,8 +2638,24 @@ def main() -> int:
               for key in sorted(tr["seen"]["flash_bwd"], key=lambda k: -k[2])]
     log(f"[backward] flash_bwd passes by device time (level 0 first): {json.dumps(passes)}")
 
-    log(TRAIN_FILES_HEAD)
-    launches.update(train_files(card[0] if card else ""))
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="synfmc_train_files_")
+    try:
+        log(TRAIN_FILES_HEAD)
+        w = prepare_train_files(root)
+        launches.update(train_files(card[0] if card else "", root, w))
+        torch.cuda.empty_cache()
+        log(TRAIN_STAGES_HEAD)
+        checked = {(kind, r["key"][1:]) for kind, rows in results.items() for r in rows}
+        stage_launches, stage_results = train_stages(card[0] if card else "", root, w, rates,
+                                                     traced, checked)
+        launches.update(stage_launches)
+        for kind, rows in stage_results.items():
+            results[kind] += rows
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
 
     # last, so that its child processes and its 3.5 GB of files touch no earlier measurement

@@ -1,12 +1,13 @@
 """SynFMC dataset: Unreal-rendered clips with 6D camera + object pose labels.
 
 The port's copy of synfmc_tpu/data/dataset.py:49-772
-(``UnrealTrajVideoDataset``, the cam and obj stages' dataset), numpy only:
-frames and masks are read by ``data/image.py``, whose C++ library is built
-and loaded by the constructor, in the parent process, before a loader
-forks its workers.  Not ported: the stage-1 ``UnrealTrajLoraDataset`` and
-the text-only validation prompt generators (:558-753), which wait for the
-trainer's validation renders.
+(``UnrealTrajVideoDataset``, the cam and obj stages' dataset) and :775-815
+(``UnrealTrajLoraDataset``, stage 1's single frames), numpy only: frames and
+masks are read by ``data/image.py``, whose C++ library is built and loaded
+by the constructor, in the parent process, before a loader forks its
+workers.  Not ported: the text-only validation prompt generators
+(:558-753); the trainer's validation renders draw real clips
+(``create_validation_samples``) or the config's prompts.
 
 Behavioral parity with the reference datasets (fmc/data/dataset.py:979
 ``UnrealTrajLoraDataset``, :2215 ``UnrealTrajVideoDataset``): same on-disk
@@ -564,4 +565,43 @@ class UnrealTrajVideoDataset:
             "obj_masks": stack("obj_masks"),
             "flip_flag": stack("flip_flag"),
             "frame_lists": [s["frame_list"] for s in samples],
+        }
+
+
+class UnrealTrajLoraDataset(UnrealTrajVideoDataset):
+    """Stage-1 image dataset: a random single frame per clip
+    (synfmc_tpu/data/dataset.py:775-815, the reference's fmc/data/
+    dataset.py:979-2213).  A clip without a caption is rejected (the base
+    class's ``__getitem__`` resamples), and ``use_flip`` flips the pixels
+    alone: a single frame has no pose to adjust."""
+
+    def __init__(self, *args, **kwargs):
+        kwargs.setdefault("is_image", True)
+        super().__init__(*args, **kwargs)
+
+    def get_batch(self, idx: int) -> Optional[dict]:
+        folder = self.dataset[idx]["clip_path"]
+        files = sorted(
+            os.path.join(folder, f) for f in os.listdir(folder)
+            if os.path.isfile(os.path.join(folder, f)) and f.endswith(".png") and "-" not in f
+        )[:-1]
+        if not files:
+            return None
+        path = self.rng.choice(files)
+        t = int(os.path.basename(path).split("_")[1].split(".")[0])
+        caption, background, _ = self.get_text_prompt_and_mask_list(idx, [t])
+        if caption == "":
+            return None
+        pixels = ((self._load_clip([path])[0] - 0.5) / 0.5).astype(np.float32)
+        if self.use_flip and self.rng.random() < 0.5:
+            pixels = pixels[:, ::-1].copy()
+        return dict(video_path=path, pixel_values=pixels, caption=caption,
+                    background_caption=background)
+
+    @staticmethod
+    def collate_fn(samples: list[dict]) -> dict:
+        return {
+            "pixel_values": np.stack([s["pixel_values"] for s in samples]),
+            "captions": [s["caption"] for s in samples],
+            "background_captions": [s["background_caption"] for s in samples],
         }

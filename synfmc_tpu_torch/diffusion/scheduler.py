@@ -52,6 +52,18 @@ class DiffusionSchedule:
         return torch.randint(0, self.num_train_timesteps, (batch,), generator=generator,
                              device=generator.device)
 
+    def sample_timesteps_biased(self, generator: torch.Generator, batch: int, min_step: int,
+                                min_step_prob: float) -> torch.Tensor:
+        """Stage 3's high-noise sampler (train_cam_obj_ctrl.py:793-800): with
+        probability ``min_step_prob`` t in [min_step, T), else [0, min_step).
+        Three draws in this order: the high t, the low t, the uniforms."""
+        dev = generator.device
+        high = torch.randint(min_step, self.num_train_timesteps, (batch,), generator=generator,
+                             device=dev)
+        low = torch.randint(0, min_step, (batch,), generator=generator, device=dev)
+        take_high = torch.rand((batch,), generator=generator, device=dev) < min_step_prob
+        return torch.where(take_high, high, low)
+
     @property
     def init_noise_sigma(self) -> float:
         return 1.0

@@ -38,7 +38,7 @@ from synfmc_tpu_torch.training.checkpoint import load_into_module, torch_load_st
 from synfmc_tpu_torch.training.pretrained import load_pretrained, validate_pretrained_paths
 
 SD15_TEXT = dict(vocab_size=49408, hidden_size=768, num_layers=12, num_heads=12)
-STAGES = ("cam", "obj")
+STAGES = ("lora", "cam", "obj")
 logger = logging.getLogger(__name__)
 
 
@@ -49,8 +49,11 @@ def _attn_block_indices(v) -> tuple:
 
 
 def build_models(config: dict, stage: str = "cam") -> dict:
-    """The stage's modules from a config dict: unet, vae, text, pose_encoder,
-    and for the obj stage the ObjectAdapter of ``omcm_config.params``."""
+    """The stage's modules from a config dict, as synfmc_tpu/training/
+    trainers.py:build_models makes them: unet, vae, text; for cam and obj a
+    camera-conditioned UNet and the pose encoder, for obj also the
+    ObjectAdapter of ``omcm_config.params``.  The lora stage's UNet has no
+    motion modules and no pose merges (an image model)."""
     if stage not in STAGES:
         raise ValueError(f"unknown stage {stage!r} (want one of {STAGES})")
     ov = dict(config.get("model_overrides") or {})
@@ -62,12 +65,14 @@ def build_models(config: dict, stage: str = "cam") -> dict:
         config.get("unet_additional_kwargs"),
         lora_rank=int(config.get("lora_rank", 0)),
         lora_scale=float(config.get("lora_scale", 1.0)),
-        camera_cond=True,
+        camera_cond=stage in ("cam", "obj"),
         motion_lora_rank=int(config.get("motion_lora_rank", 0)),
         motion_lora_scale=float(config.get("motion_lora_scale", 1.0)),
         pose_scale=float(apk.get("scale", 1.0)),
         pose_cond_blocks=_attn_block_indices(apk.get("temporal_attn_names", "0")),
     )
+    if stage == "lora":
+        unet_kwargs["use_motion_module"] = False
     unet = UNet3D(block_out_channels=chs, attn_heads=heads, cross_attention_dim=xdim,
                   **unet_kwargs)
     vae = AutoencoderKL(block_out_channels=tuple(ov.get("vae_channels", (128, 256, 512, 512))))
@@ -76,17 +81,18 @@ def build_models(config: dict, stage: str = "cam") -> dict:
     if "text" not in ov:
         text_kwargs["hidden_size"] = xdim
     text = CLIPTextModel(**text_kwargs)
-    pk = dict(config.get("pose_encoder_kwargs") or {})
-    pose_chs = chs if "block_out_channels" in ov else tuple(pk.get("channels", chs))
-    pose = CameraPoseEncoder(
-        downscale_factor=int(pk.get("downscale_factor", 8)),
-        channels=pose_chs,
-        nums_rb=int(pk.get("nums_rb", 2)),
-        ksize=int(pk.get("ksize", 1)),
-        temporal_attention_nhead=int(pk.get("temporal_attention_nhead", 8)),
-        temporal_pe_max_len=int(pk.get("temporal_position_encoding_max_len", 16)),
-    )
-    models = {"unet": unet, "vae": vae, "text": text, "pose_encoder": pose}
+    models = {"unet": unet, "vae": vae, "text": text}
+    if stage in ("cam", "obj"):
+        pk = dict(config.get("pose_encoder_kwargs") or {})
+        pose_chs = chs if "block_out_channels" in ov else tuple(pk.get("channels", chs))
+        models["pose_encoder"] = CameraPoseEncoder(
+            downscale_factor=int(pk.get("downscale_factor", 8)),
+            channels=pose_chs,
+            nums_rb=int(pk.get("nums_rb", 2)),
+            ksize=int(pk.get("ksize", 1)),
+            temporal_attention_nhead=int(pk.get("temporal_attention_nhead", 8)),
+            temporal_pe_max_len=int(pk.get("temporal_position_encoding_max_len", 16)),
+        )
     if stage == "obj":
         ok = dict((config.get("omcm_config") or {}).get("params") or {})
         models["adapter"] = ObjectAdapter(
@@ -198,7 +204,7 @@ def build_pipeline(config, *, stage: Optional[str] = None, seed: int = 42,
     if data_parallel or frame_parallel:
         raise NotImplementedError(
             "data_parallel / frame_parallel: the multi-device mesh is not ported "
-            "(ROADMAP.md, Queue 1 item 7)")
+            "(ROADMAP.md, Queue 1 item 5)")
     config = dict(load_config(config))
     if lora_ckpt:
         config["lora_ckpt"] = lora_ckpt
@@ -226,7 +232,7 @@ def build_pipeline(config, *, stage: Optional[str] = None, seed: int = 42,
                                strict=bool(config.get("strict_pretrained", False)))
     pipe = AnimationPipeline(
         unet=models["unet"], vae=models["vae"], text_encoder=models["text"],
-        tokenizer=tokenizer, schedule=schedule, pose_encoder=models["pose_encoder"],
+        tokenizer=tokenizer, schedule=schedule, pose_encoder=models.get("pose_encoder"),
         adapter=models.get("adapter"), device=dev,
     )
     sample_size = tuple((config.get("train_data") or {}).get("params", {})

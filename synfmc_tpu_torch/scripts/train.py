@@ -1,12 +1,12 @@
 """Training command line, the port of scripts/train.py:
 
-    python -m synfmc_tpu_torch.scripts.train --stage cam --config configs/cam.yaml \\
+    python -m synfmc_tpu_torch.scripts.train --stage {lora,cam,obj} --config configs/<stage>.yaml \\
         [--max-steps N] [--device cpu]
 
-Runs ``training.trainers.train`` on the GPU unless ``--device cpu`` is given
-and prints the metrics dict on its last line (with ``'preempted': True``
-after a SIGTERM or SIGINT, which stops the run cleanly after a final
-checkpoint).  Only the cam stage is ported.
+Runs ``training.trainers.train`` for the stage (1: image LoRA, 2: CMC, 3:
+OMC) on the GPU unless ``--device cpu`` is given and prints the metrics dict
+on its last line (with ``'preempted': True`` after a SIGTERM or SIGINT, which
+stops the run cleanly after a final checkpoint).
 """
 
 from __future__ import annotations

@@ -12,12 +12,13 @@ The counterpart of synfmc_tpu/training/checkpoint.py.
   files.  A step directory is written under a temporary name and renamed
   into place, so that ``latest_native`` never finds a partial one.
   ``latest_native`` and ``find_auto_resume`` are the JAX package's (:91-134).
-- **Reference bundles**: ``save_stage2_bundle`` (:202) writes
-  ``{epoch, global_step, optimizer_state_dict, pose_encoder_state_dict,
-  attention_processor_state_dict[, mm_state_dict]}`` with the
-  ``optimizer_state_dict`` in ``torch.optim.AdamW`` form, its parameters in
-  the reference's positional order (``export_adamw_state_dict``, from
-  synfmc_tpu/interop/torch_port.py).
+- **Reference bundles**, state dicts by reference name on the CPU, the
+  ``optimizer_state_dict`` in ``torch.optim.AdamW`` form with its parameters
+  in the reference's positional order (``export_adamw_state_dict``, from
+  synfmc_tpu/interop/torch_port.py): ``save_stage1_bundle`` (:179)
+  ``lora-step-N.ckpt``; ``save_stage2_bundle`` (:202) ``cmcm-step-N.ckpt``;
+  ``save_stage3_bundles`` (:224) ``omcm-step-N.ckpt`` and, when those sets
+  train, ``cmcm-step-N.ckpt`` and ``img-lora-step-N.ckpt``.
 - **Reading** a bundle into the port's modules: ``torch_load_state_dict``
   (:167) and ``load_into_params`` (:299) as ``load_into_module``.  The
   port's modules carry the reference's state-dict names, so a bundle's
@@ -215,21 +216,70 @@ def export_adamw_state_dict(segments: list[dict], count: int, lr: float,
     return {"state": state, "param_groups": [group], "param_names": names}
 
 
+def _cpu(state: Mapping) -> dict:
+    return {k: v.detach().to("cpu").contiguous() for k, v in state.items()}
+
+
+def _save(bundle: dict, path: str) -> None:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    torch.save(bundle, path)
+
+
+def save_stage1_bundle(path: str, lora_state: Mapping, epoch: int, global_step: int,
+                       optimizer_state_dict: Optional[dict] = None) -> None:
+    """The reference's ``lora-step-N.ckpt`` (train_image_lora.py:282-296):
+    ``{epoch, global_step, lora_state_dict, optimizer_state_dict}``; the
+    optimizer key is always there (None without Adam state)."""
+    _save({"epoch": epoch, "global_step": global_step, "lora_state_dict": _cpu(lora_state),
+           "optimizer_state_dict": optimizer_state_dict}, path)
+
+
+def save_stage3_bundles(out_dir: str, global_step: int, omcm_state: Mapping,
+                        pose_encoder_state: Optional[Mapping] = None,
+                        merge_state: Optional[Mapping] = None,
+                        mm_state: Optional[Mapping] = None,
+                        lora_state: Optional[Mapping] = None, epoch: int = 0,
+                        optimizer_state_dict: Optional[dict] = None) -> list[str]:
+    """Stage 3's files (train_cam_obj_ctrl.py:948-980); returns their paths.
+
+    ``omcm-step-N.ckpt`` holds the adapter, the epoch, the step and the
+    optimizer state, and with ``mm_state`` (train_mm's norm / proj tensors,
+    which the reference trains but writes nowhere) an extra
+    ``mm_state_dict``.  With a trained pose encoder (train_cm),
+    ``cmcm-step-N.ckpt`` holds it and the merge tensors ('merge' in the name,
+    'lora' not in it); with ``lora_state`` (train_image_lora),
+    ``img-lora-step-N.ckpt`` holds the LoRA."""
+    omcm = {"epoch": epoch, "global_step": global_step, "omcm_state_dict": _cpu(omcm_state),
+            "optimizer_state_dict": optimizer_state_dict}
+    if mm_state:
+        omcm["mm_state_dict"] = _cpu(mm_state)
+    paths = [os.path.join(out_dir, f"omcm-step-{global_step}.ckpt")]
+    _save(omcm, paths[-1])
+    if pose_encoder_state is not None:
+        paths.append(os.path.join(out_dir, f"cmcm-step-{global_step}.ckpt"))
+        _save({"epoch": epoch, "global_step": global_step,
+               "pose_encoder_state_dict": _cpu(pose_encoder_state),
+               "attention_processor_state_dict": _cpu(merge_state or {})}, paths[-1])
+    if lora_state is not None:
+        paths.append(os.path.join(out_dir, f"img-lora-step-{global_step}.ckpt"))
+        _save({"epoch": epoch, "global_step": global_step, "lora_state_dict": _cpu(lora_state)},
+              paths[-1])
+    return paths
+
+
 def save_stage2_bundle(path: str, pose_encoder_state: Mapping, merge_state: Mapping, epoch: int,
                        global_step: int, mm_state: Optional[Mapping] = None,
                        optimizer_state_dict: Optional[dict] = None) -> None:
     """The reference's ``cmcm-step-N.ckpt`` (train_cam_ctrl.py:669-684):
     state dicts by reference name, on the CPU; a train_mm run's motion-module
     tensors go to their own ``mm_state_dict``."""
-    cpu = lambda d: {k: v.detach().to("cpu").contiguous() for k, v in d.items()}
     bundle = {
         "epoch": epoch,
         "global_step": global_step,
         "optimizer_state_dict": optimizer_state_dict,
-        "pose_encoder_state_dict": cpu(pose_encoder_state),
-        "attention_processor_state_dict": cpu(merge_state),
+        "pose_encoder_state_dict": _cpu(pose_encoder_state),
+        "attention_processor_state_dict": _cpu(merge_state),
     }
     if mm_state:
-        bundle["mm_state_dict"] = cpu(mm_state)
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    torch.save(bundle, path)
+        bundle["mm_state_dict"] = _cpu(mm_state)
+    _save(bundle, path)

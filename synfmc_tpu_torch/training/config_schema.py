@@ -94,7 +94,7 @@ EXTENSION_KEYS = frozenset({
     "allow_untrained_cm",         # stage-3 smoke runs without a CMC ckpt
     "record_loss_history",        # per-step loss record (tests only)
     "enable_validation",          # gate the in-training render passes
-    "profile_steps",              # profiler trace window (not ported: raises)
+    "profile_steps",              # profiler trace window
     "gradient_checkpointing",     # remat (reference: lora only; ours: all)
     "gradient_checkpointing_policy",
     "allow_unknown_config_keys",  # downgrade unknown-key errors to notes

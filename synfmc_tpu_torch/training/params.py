@@ -17,6 +17,11 @@ import torch
 NamePredicate = Callable[[str], bool]
 
 
+def stage1_lora_trainable(name: str) -> bool:
+    """Stage 1: the LoRA branches only."""
+    return "lora" in name
+
+
 def stage2_cmc_unet_trainable(name: str) -> bool:
     """Stage 2 UNet subset: 'merge' in the name and 'lora' not in it (the
     pose encoder trains fully)."""
@@ -30,6 +35,16 @@ def stage3_mm_trainable(name: str) -> bool:
     parts = name.split(".")
     owner = parts[-2] if len(parts) > 1 else name
     return owner in ("norm", "proj_in", "proj_out")
+
+
+def stage3_unet_trainable(name: str, train_cm: bool = False, train_mm: bool = False,
+                          train_image_lora: bool = False) -> bool:
+    """Stage 3 UNet subset (the ObjectAdapter trains fully): the pose merges
+    with ``train_cm``, the motion modules' norm / proj_in / proj_out with
+    ``train_mm``, the image LoRA with ``train_image_lora``."""
+    return ((train_cm and stage2_cmc_unet_trainable(name))
+            or (train_mm and stage3_mm_trainable(name))
+            or (train_image_lora and "lora" in name))
 
 
 def partition_params(module: torch.nn.Module, predicate: NamePredicate,

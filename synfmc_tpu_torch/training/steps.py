@@ -1,14 +1,36 @@
-"""The stage-2 (CMC) train step (synfmc_tpu/training/steps.py).
+"""The train steps of the three stages (synfmc_tpu/training/steps.py).
 
-One step: background-caption swap and per-sample text and camera CFG
-dropout, the frozen VAE encode of every frame to a sampled latent, noise and
-timesteps, CLIP text encode, Plücker rays, then the pose encoder and UNet
-forward and backward for the masked diffusion loss, then clip + AdamW.
+One step: the caption swap and per-sample text and camera CFG dropout, the
+frozen VAE encode to a sampled latent, noise and timesteps, CLIP text
+encode, Plücker rays, then the forward and backward of the trainable
+modules for the stage's loss, then clip + AdamW:
+- stage 1 (image LoRA, :177-204): single frames (F = 1), no camera, the
+  UNet's LoRA branches, plain epsilon MSE;
+- stage 2 (CMC, :207-270): the pose encoder and the UNet's pose merges,
+  the loss masked by the inverted object union;
+- stage 3 (OMC, :273-337): the ObjectAdapter's traj features into the
+  UNet, timesteps biased to high noise, the loss on the objects' union mask
+  (not inverted); the pose encoder frozen unless it trains (then it runs
+  under ``torch.no_grad``, as ``jax.value_and_grad`` over the trainable tree
+  differentiates nothing else).
 
-The random draws are split from the math: :func:`draw_cam` makes every draw
-of a step (the JAX package's key streams 0-5 and 7) into one
-:class:`CamDraws` record, and the grads function takes that record, so both
-frameworks can be handed the same draws.
+The random draws are split from the math: :func:`draw_lora`,
+:func:`draw_cam` and :func:`draw_obj` make every draw of a step into one
+record (:class:`LoraDraws`, :class:`CamDraws`, :class:`ObjDraws`), and the
+grads functions take that record, so both frameworks can be handed the same
+draws.
+
+``StepConfig.remat`` recomputes the UNet's forward in the backward
+(``torch.utils.checkpoint``, non-reentrant): policy "full" saves nothing
+inside the UNet; "dots", the counterpart of
+``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``, saves the
+outputs of the Dense products (``aten.mm`` / ``aten.addmm``) and recomputes
+everything else, the hand-written kernels included.  The recompute draws no
+random numbers, so no RNG state is kept for it.
+
+:func:`make_accumulating_step` takes ``k`` micro-batches, each with its own
+draws, one at a time (one micro-batch's activations alive), sums their
+gradients in fp32, and applies the mean in one clip + AdamW update.
 
 Mixed precision: the model holds the trainable tensors in its working type
 (bf16) and :class:`TrainState` keeps fp32 masters that the optimizer
@@ -21,18 +43,25 @@ own tensors.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+import functools
+from typing import Callable, Optional, Sequence
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from synfmc_tpu_torch.diffusion.scheduler import DiffusionSchedule
 from synfmc_tpu_torch.geometry.plucker import plucker_embedding
-from synfmc_tpu_torch.training.losses import appearance_debias_loss, masked_diffusion_loss
+from synfmc_tpu_torch.training.losses import appearance_debias_loss, masked_diffusion_loss, mse
+from synfmc_tpu_torch.utils.traj_features import build_adapter_inputs
 
 
 @dataclasses.dataclass(frozen=True)
 class StepConfig:
-    """Static stage-2 hyperparameters (from the YAML config)."""
+    """Static per-stage hyperparameters (from the YAML config)."""
 
     cfg_random_null_text_ratio: float = 0.1
     background_caption_prob: float = 0.4
@@ -41,12 +70,33 @@ class StepConfig:
     mask_loss_weight: float = 1.0
     sd_loss_weight: float = 0.6
     appearance_debias: float = 0.0
+    cfg_random_null_om_ratio: float = 0.1  # stage 3: whole-sample adapter-input dropout
+    omcm_min_step: int = 700
+    min_step_prob: float = 0.8
     sample_height: int = 256
     sample_width: int = 384
+    remat: bool = False
+    remat_policy: str = "full"  # or "dots"
+
+
+class _Draws:
+    def to(self, device):
+        return type(self)(**{f.name: getattr(self, f.name).to(device)
+                             for f in dataclasses.fields(self)})
 
 
 @dataclasses.dataclass
-class CamDraws:
+class LoraDraws(_Draws):
+    """Every random draw of one stage-1 step."""
+
+    text_drop: torch.Tensor   # (B,) bool: null text
+    vae_eps: torch.Tensor     # (B, H/8, W/8, 4) standard normal for the VAE sample
+    noise: torch.Tensor       # (B, 1, H/8, W/8, 4) diffusion noise
+    timesteps: torch.Tensor   # (B,) int64 in [0, T)
+
+
+@dataclasses.dataclass
+class CamDraws(_Draws):
     """Every random draw of one stage-2 step."""
 
     use_background: torch.Tensor  # () bool: swap in the background captions (whole batch)
@@ -57,9 +107,55 @@ class CamDraws:
     timesteps: torch.Tensor       # (B,) int64 in [0, T)
     anchor: torch.Tensor          # (B,) int64 appearance-debias anchor frame
 
-    def to(self, device) -> "CamDraws":
-        return CamDraws(**{f.name: getattr(self, f.name).to(device)
-                           for f in dataclasses.fields(self)})
+
+@dataclasses.dataclass
+class ObjDraws(_Draws):
+    """Every random draw of one stage-3 step: stage 2's, with the timesteps
+    biased to high noise and the adapter inputs' CFG-dropout uniforms."""
+
+    use_background: torch.Tensor
+    text_drop: torch.Tensor
+    camera_drop: torch.Tensor
+    vae_eps: torch.Tensor
+    noise: torch.Tensor
+    timesteps: torch.Tensor       # (B,) sample_timesteps_biased
+    om_uniform: torch.Tensor      # (B,) uniforms; a sample's adapter input drops when <= ratio
+    anchor: torch.Tensor
+
+
+def draw_lora(generator: torch.Generator, batch: dict, cfg: StepConfig,
+              schedule: DiffusionSchedule) -> LoraDraws:
+    """The draws of one stage-1 step (pixel_values (B, H, W, 3))."""
+    b, h, w = batch["pixel_values"].shape[:3]
+    dev = generator.device
+    return LoraDraws(
+        text_drop=torch.rand((b,), generator=generator, device=dev)
+        < cfg.cfg_random_null_text_ratio,
+        vae_eps=torch.randn((b, h // 8, w // 8, 4), generator=generator, device=dev),
+        noise=torch.randn((b, 1, h // 8, w // 8, 4), generator=generator, device=dev),
+        timesteps=schedule.sample_timesteps(generator, b),
+    )
+
+
+def draw_obj(generator: torch.Generator, batch: dict, cfg: StepConfig,
+             schedule: DiffusionSchedule) -> ObjDraws:
+    """The draws of one stage-3 step, in stage 2's order with the biased
+    timesteps' three draws and the adapter uniforms before the anchor."""
+    b, f, h, w = batch["pixel_values"].shape[:4]
+    dev = generator.device
+    uniform = lambda *shape: torch.rand(shape, generator=generator, device=dev)
+    normal = lambda *shape: torch.randn(shape, generator=generator, device=dev)
+    return ObjDraws(
+        use_background=uniform() < cfg.background_caption_prob,
+        text_drop=uniform(b) < cfg.cfg_random_null_text_ratio,
+        camera_drop=uniform(b) < cfg.cfg_random_null_text_ratio,
+        vae_eps=normal(b * f, h // 8, w // 8, 4),
+        noise=normal(b, f, h // 8, w // 8, 4),
+        timesteps=schedule.sample_timesteps_biased(generator, b, cfg.omcm_min_step,
+                                                   cfg.min_step_prob),
+        om_uniform=uniform(b),
+        anchor=torch.randint(0, f, (b,), generator=generator, device=dev),
+    )
 
 
 def draw_cam(generator: torch.Generator, batch: dict, cfg: StepConfig,
@@ -88,7 +184,7 @@ def rt_to_c2w(rt: torch.Tensor) -> torch.Tensor:
     return torch.cat([m, bottom.expand(b, f, 1, 4)], dim=2)
 
 
-def _select_text(batch: dict, draws: CamDraws, cfg: StepConfig) -> torch.Tensor:
+def _select_text(batch: dict, draws, cfg: StepConfig) -> torch.Tensor:
     """Background-caption swap (whole batch), then per-sample null dropout."""
     ids = batch["input_ids"]
     if "background_ids" in batch:
@@ -105,6 +201,92 @@ def encode_latents(vae, pixels: torch.Tensor, eps: torch.Tensor) -> torch.Tensor
     return z.reshape(b, f, *z.shape[1:])
 
 
+# Dense products: the ops ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``
+# keeps.  Batched products (attention's bmm) and convolutions are recomputed.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+REMAT_POLICIES = {"full": None, "dots": functools.partial(create_selective_checkpoint_contexts,
+                                                          _dots_policy)}
+
+
+def maybe_remat(fn: Callable, cfg: StepConfig) -> Callable:
+    """``fn`` (the UNet call), rematerialised by ``cfg.remat_policy`` when
+    ``cfg.remat``: non-reentrant ``torch.utils.checkpoint`` without RNG
+    state, since the recompute draws no random numbers."""
+    if not cfg.remat:
+        return fn
+    if cfg.remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r} "
+                         f"(want one of {sorted(REMAT_POLICIES)})")
+    context_fn = REMAT_POLICIES[cfg.remat_policy]
+    extra = {} if context_fn is None else {"context_fn": context_fn}
+
+    def remat(*args, **kwargs):
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                          **extra, **kwargs)
+
+    return remat
+
+
+def _conditions(vae, text_encoder, schedule, batch, draws, cfg, timesteps=None):
+    """The frozen part of a stage-2/3 step, without gradients: (noise, t,
+    noisy latents, text context, Plücker rays)."""
+    with torch.no_grad():
+        ids = _select_text(batch, draws, cfg)
+        rt = batch["camera_rt"]
+        if cfg.cfg_random_null_text_ratio > 0:  # camera CFG dropout -> zeros
+            rt = rt * (1.0 - draws.camera_drop[:, None, None].to(rt.dtype))
+        latents = encode_latents(vae, batch["pixel_values"], draws.vae_eps)
+        noise = draws.noise.to(latents.dtype)
+        t = draws.timesteps
+        noisy = schedule.add_noise(latents, noise, t)
+        context = text_encoder(ids)
+        plucker = plucker_embedding(batch["intrinsics"], rt_to_c2w(rt), cfg.sample_height,
+                                    cfg.sample_width, flip_flag=batch.get("flip_flag"))
+    return noise, t, noisy, context, plucker
+
+
+def _backward(trainable: dict, loss: torch.Tensor, metrics: dict):
+    loss.backward()
+    # a tensor the loss does not reach (the ObjectAdapter's last stage: the
+    # 4th down block takes no traj feature) has a zero gradient, as in JAX
+    grads = {name: p.grad if p.grad is not None else torch.zeros_like(p)
+             for name, p in trainable.items()}
+    return grads, {"loss": loss.detach(), **{k: v.detach() for k, v in metrics.items()}}
+
+
+def _clear(trainable: dict) -> None:
+    for p in trainable.values():
+        p.grad = None
+
+
+def make_lora_grads_fn(unet, vae, text_encoder, schedule: DiffusionSchedule,
+                       cfg: StepConfig = StepConfig()) -> Callable:
+    """Stage 1 (image LoRA): ``grads_fn(trainable, batch, draws) -> (grads,
+    metrics)``.  batch: pixel_values (B, H, W, 3) in [-1, 1], input_ids (B,
+    77), null_ids (77,); the UNet runs on F = 1 latents without camera."""
+    unet_call = maybe_remat(unet, cfg)
+
+    def grads_fn(trainable: dict, batch: dict, draws: LoraDraws):
+        with torch.no_grad():
+            ids = _select_text(batch, draws, cfg)
+            latents = encode_latents(vae, batch["pixel_values"][:, None], draws.vae_eps)
+            noise = draws.noise.to(latents.dtype)
+            t = draws.timesteps
+            noisy = schedule.add_noise(latents, noise, t)
+            context = text_encoder(ids)
+        _clear(trainable)
+        loss = mse(unet_call(noisy, t, context), noise)
+        return _backward(trainable, loss, {})
+
+    return grads_fn
+
+
 def make_cam_grads_fn(unet, pose_encoder, vae, text_encoder, schedule: DiffusionSchedule,
                       cfg: StepConfig = StepConfig(apply_masked_loss=True)) -> Callable:
     """Stage 2 (CMC): ``grads_fn(trainable, batch, draws) -> (grads, metrics)``.
@@ -115,32 +297,58 @@ def make_cam_grads_fn(unet, pose_encoder, vae, text_encoder, schedule: Diffusion
     input_ids / background_ids (B, 77), null_ids (77,), camera_rt (B, F, 12),
     intrinsics (B, F, 4), obj_union_mask (B, F, H, W, 1), optional flip_flag (B,).
     """
+    unet_call = maybe_remat(unet, cfg)
 
     def grads_fn(trainable: dict, batch: dict, draws: CamDraws):
-        with torch.no_grad():
-            ids = _select_text(batch, draws, cfg)
-            rt = batch["camera_rt"]
-            if cfg.cfg_random_null_text_ratio > 0:  # camera CFG dropout -> zeros
-                rt = rt * (1.0 - draws.camera_drop[:, None, None].to(rt.dtype))
-            latents = encode_latents(vae, batch["pixel_values"], draws.vae_eps)
-            noise = draws.noise.to(latents.dtype)
-            t = draws.timesteps
-            noisy = schedule.add_noise(latents, noise, t)
-            context = text_encoder(ids)
-            plucker = plucker_embedding(batch["intrinsics"], rt_to_c2w(rt), cfg.sample_height,
-                                        cfg.sample_width, flip_flag=batch.get("flip_flag"))
-        for p in trainable.values():
-            p.grad = None
+        noise, t, noisy, context, plucker = _conditions(vae, text_encoder, schedule, batch,
+                                                        draws, cfg)
+        _clear(trainable)
         pose_feats = pose_encoder(plucker)
-        pred = unet(noisy, t, context, pose_features=pose_feats)
+        pred = unet_call(noisy, t, context, pose_features=pose_feats)
         loss, metrics = masked_diffusion_loss(
             pred, noise, batch.get("obj_union_mask") if cfg.apply_masked_loss else None,
             cfg.invert_loss_mask, cfg.mask_loss_weight, cfg.sd_loss_weight)
         if cfg.appearance_debias > 0:
             loss = loss + cfg.appearance_debias * appearance_debias_loss(pred, noise, draws.anchor)
-        loss.backward()
-        grads = {name: p.grad for name, p in trainable.items()}
-        return grads, {"loss": loss.detach(), **{k: v.detach() for k, v in metrics.items()}}
+        return _backward(trainable, loss, metrics)
+
+    return grads_fn
+
+
+OBJ_STEP_CONFIG = StepConfig(apply_masked_loss=True, invert_loss_mask=False, sd_loss_weight=0.3)
+
+
+def make_obj_grads_fn(unet, pose_encoder, adapter, vae, text_encoder,
+                      schedule: DiffusionSchedule, cfg: StepConfig = OBJ_STEP_CONFIG) -> Callable:
+    """Stage 3 (OMC): ``grads_fn(trainable, batch, draws) -> (grads, metrics)``.
+
+    batch adds obj_info (B, F, O, 12) and obj_masks (B, F, O, H, W) to
+    stage 2's.  The raster (pose x mask, the mask, whole-sample dropout,
+    re-masked) goes through the ObjectAdapter into the UNet's traj features;
+    the loss mask is the union of the object masks.  A pose encoder with no
+    trainable tensor runs without gradients."""
+    unet_call = maybe_remat(unet, cfg)
+
+    def grads_fn(trainable: dict, batch: dict, draws: ObjDraws):
+        noise, t, noisy, context, plucker = _conditions(vae, text_encoder, schedule, batch,
+                                                        draws, cfg)
+        b, f = batch["obj_info"].shape[:2]
+        with torch.no_grad():
+            feats, mask = build_adapter_inputs(batch["obj_info"], batch["obj_masks"],
+                                               cfg_dropout_ratio=cfg.cfg_random_null_om_ratio,
+                                               uniforms=draws.om_uniform)
+            union = (batch["obj_masks"].amax(dim=2) > 0).float()[..., None]
+        _clear(trainable)
+        with torch.set_grad_enabled(any(p.requires_grad for p in pose_encoder.parameters())):
+            pose_feats = pose_encoder(plucker)
+        traj_feats = [ft.reshape(b, f, *ft.shape[1:]) for ft in adapter(feats, mask)]
+        pred = unet_call(noisy, t, context, pose_features=pose_feats, traj_features=traj_feats)
+        loss, metrics = masked_diffusion_loss(
+            pred, noise, union if cfg.apply_masked_loss else None,
+            cfg.invert_loss_mask, cfg.mask_loss_weight, cfg.sd_loss_weight)
+        if cfg.appearance_debias > 0:
+            loss = loss + cfg.appearance_debias * appearance_debias_loss(pred, noise, draws.anchor)
+        return _backward(trainable, loss, metrics)
 
     return grads_fn
 
@@ -181,13 +389,43 @@ def apply_grads(state: TrainState, grads: dict) -> TrainState:
 def step_from_grads(grads_fn: Callable) -> Callable:
     """grads_fn -> ``step_fn(state, batch, draws) -> (state, metrics)``."""
 
-    def step_fn(state: TrainState, batch: dict, draws: CamDraws):
+    def step_fn(state: TrainState, batch: dict, draws):
         grads, metrics = grads_fn(state.trainable, batch, draws)
         return apply_grads(state, grads), metrics
 
     return step_fn
 
 
-def make_cam_train_step(unet, pose_encoder, vae, text_encoder, schedule: DiffusionSchedule,
-                        cfg: StepConfig = StepConfig(apply_masked_loss=True)) -> Callable:
-    return step_from_grads(make_cam_grads_fn(unet, pose_encoder, vae, text_encoder, schedule, cfg))
+def make_accumulating_step(grads_fn: Callable, accum_steps: int) -> Callable:
+    """Real gradient accumulation (synfmc_tpu/training/steps.py:133-174):
+    ``step_fn(state, batches, draws) -> (state, metrics)`` over ``accum_steps``
+    micro-batches and their draws.  Micro-batches run one at a time, so one
+    micro-batch's activations are alive; their gradients and metrics sum in
+    fp32 in micro order, are scaled by 1/k, and one clip + AdamW update
+    applies the mean: the gradient of the mean loss over all k*B samples."""
+    if accum_steps < 2:
+        raise ValueError("use step_from_grads for accum_steps == 1")
+
+    def step_fn(state: TrainState, batches: Sequence[dict], draws: Sequence):
+        if len(batches) != accum_steps or len(draws) != accum_steps:
+            raise ValueError(f"want {accum_steps} micro-batches and draws, got "
+                             f"{len(batches)} and {len(draws)}")
+        acc = macc = None
+        for batch, d in zip(batches, draws):
+            grads, metrics = grads_fn(state.trainable, batch, d)
+            if acc is None:
+                acc = {n: g.to(torch.float32, copy=True) for n, g in grads.items()}
+                macc = {k: v.to(torch.float32, copy=True) for k, v in metrics.items()}
+            else:
+                for n, g in grads.items():
+                    acc[n].add_(g.float())
+                for k, v in metrics.items():
+                    macc[k].add_(v.float())
+        _clear(state.trainable)
+        inv = 1.0 / accum_steps
+        grads = {n: g.mul_(inv) for n, g in acc.items()}
+        metrics = {k: v.mul_(inv) for k, v in macc.items()}
+        return apply_grads(state, grads), metrics
+
+    return step_fn
+

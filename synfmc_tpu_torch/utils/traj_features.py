@@ -34,15 +34,18 @@ def rasterize_traj_features(obj_info: torch.Tensor, obj_masks: torch.Tensor
 
 def build_adapter_inputs(obj_info: torch.Tensor, obj_masks: torch.Tensor,
                          generator: Optional[torch.Generator] = None,
-                         cfg_dropout_ratio: float = 0.0) -> tuple[torch.Tensor, torch.Tensor]:
+                         cfg_dropout_ratio: float = 0.0,
+                         uniforms: Optional[torch.Tensor] = None
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """Raster + mask concatenated, whole samples dropped with probability
-    ``cfg_dropout_ratio`` (uniform draws from ``generator``), re-masked:
-    features (B*F, H, W, 13) and mask (B*F, H, W, 1)."""
+    ``cfg_dropout_ratio`` (their (B,) uniforms given, or drawn from
+    ``generator``), re-masked: features (B*F, H, W, 13) and mask (B*F, H, W, 1)."""
     traj, mask = rasterize_traj_features(obj_info, obj_masks)
     features = torch.cat([traj, mask], dim=-1)
-    if generator is not None and cfg_dropout_ratio > 0:
-        keep = torch.rand((features.shape[0],), generator=generator,
-                          device=generator.device) > cfg_dropout_ratio
+    if uniforms is None and generator is not None and cfg_dropout_ratio > 0:
+        uniforms = torch.rand((features.shape[0],), generator=generator, device=generator.device)
+    if uniforms is not None and cfg_dropout_ratio > 0:
+        keep = uniforms > cfg_dropout_ratio
         features = features * keep.to(features.device, features.dtype)[:, None, None, None, None]
     features = features * mask
     b, f, h, w, c = features.shape

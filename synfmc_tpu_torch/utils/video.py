@@ -1,6 +1,10 @@
-"""Animated GIF output (the counterpart of synfmc_tpu/utils/video.py:
-``save_videos_grid``, the reference's fmc/utils/util.py:36-48), written by
-this package's own GIF89a encoder.
+"""Render and camera-label files: the counterpart of synfmc_tpu/utils/
+video.py.  ``save_videos_grid`` (the reference's fmc/utils/util.py:36-48)
+writes an animated GIF by this package's own GIF89a encoder;
+``save_image_grid`` a PNG by ``data/image.py``'s writer (the JAX package uses
+imageio for both); ``save_camera_info_txt`` and ``save_camera_label_txt``
+the camera dumps of train_cam_ctrl.py:41-74, line for line as the JAX
+package writes them.
 
 The encoder (numpy, no image library):
 - one global palette, a fixed 6x7x6 RGB cube (252 colours, 4 unused
@@ -21,6 +25,8 @@ from __future__ import annotations
 import os
 
 import numpy as np
+
+from synfmc_tpu_torch.data.image import write_png
 
 LEVELS = (6, 7, 6)  # palette levels of R, G, B
 _CLEAR, _EOI, _CODE_BITS = 256, 257, 9
@@ -130,3 +136,39 @@ def save_videos_grid(videos, path: str, n_rows: int = 4, fps: int = 8) -> None:
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "wb") as fh:
         fh.write(data)
+
+
+def image_grid(images, n_rows: int = 4) -> np.ndarray:
+    """(B, H, W, 3) -> (rows*H, cols*W, 3) uint8; image i at row i % rows,
+    column i // rows."""
+    return video_grid(to_uint8(images)[:, None], n_rows)[0]
+
+
+def save_image_grid(images, path: str, n_rows: int = 4) -> None:
+    """Save (B, H, W, 3) images (floats in [0, 1] or uint8) as a PNG grid."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    write_png(path, image_grid(images, n_rows))
+
+
+def save_camera_info_txt(path: str, intrinsics, cam_rts) -> None:
+    """Per-frame camera labels for RotErr / TransErr: the frame count, then
+    ``i fx fy cx cy 0 0 r00 r01 r02 t0 r10 ... t2`` a frame."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    cam_rts = np.asarray(cam_rts).reshape(len(cam_rts), -1)
+    with open(path, "w") as f:
+        f.write(f"{len(cam_rts)}\n")
+        for i, (k, rt) in enumerate(zip(np.asarray(intrinsics), cam_rts)):
+            vals = [i] + list(k[:4]) + [0, 0] + list(rt[:12])
+            f.write(" ".join(str(float(v)) if j else str(int(v)) for j, v in enumerate(vals))
+                    + "\n")
+
+
+def save_camera_label_txt(path: str, header: str, cams) -> None:
+    """A header line, then per frame seven ``-1`` fields and the row-major 3x4
+    camera matrix (float64)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    cams = np.asarray(cams, dtype=np.float64).reshape(len(cams), 12)
+    with open(path, "w") as f:
+        f.write(header + " \n")
+        for cam in cams:
+            f.write("-1 -1 -1 -1 -1 -1 -1 " + " ".join(str(v) for v in cam) + "\n")

@@ -287,4 +287,4 @@ def test_build_models_obj_stage_loads_every_jax_param(case):
                       ("pose_encoder", "pose_encoder"), ("adapter", "adapter")):
         load_jax_params(models[name], case["params"][key], key)  # strict=True
     with pytest.raises(ValueError, match="unknown stage"):
-        build_models(case["cfg"], stage="lora")
+        build_models(case["cfg"], stage="video")
