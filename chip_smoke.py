@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--profile]
     python3 chip_smoke.py --train-files
     python3 chip_smoke.py --train-stages
+    python3 chip_smoke.py --tools
     python3 chip_smoke.py --passes [ROOT]
 
 Phases, each raising on failure (non-zero exit):
@@ -48,6 +49,10 @@ Phases, each raising on failure (non-zero exit):
                 and 2 multidiff windows (20 frames) decoded 4 frames a call;
                 each request's UNet forwards by kind and its launch counters
                 are checked exactly; ms per step, s/clip, peak per mode;
+                then the host cost of reaching K1-K3 through their
+                registered ops (torch.ops.synfmc.*) against a direct call of
+                the same implementation, at request (a)'s most frequent key
+                of each, times its launches a step, beside (a)'s ms per step;
   7. train    - training.trainers.train("cam", configs/cam.yaml) at full
                 width (batch 1, 16x256x384, bf16, fp32 masters) takes 5 AdamW
                 steps on seeded synthetic batches: finite losses, a finite
@@ -77,7 +82,8 @@ Phases, each raising on failure (non-zero exit):
                 within 1e-2 relative of run a's, run a's last cmcm-step-6.ckpt
                 through build_pipeline equal to its final weights; first-step
                 seconds, data wait and step ms, checkpoint seconds and bytes,
-                peak;
+                peak; then `python -m synfmc_tpu_torch.scripts.validate_dataset`
+                on the fixture's config: exit 0;
  10. train-stages - the three stages chained as a user runs them, on the
                 same files: first, in process with seeded weights, one
                 stage-1 step (configs/lora.yaml: 16 single frames 256x384),
@@ -96,8 +102,16 @@ Phases, each raising on failure (non-zero exit):
                 -> stage 3 resumed from its step-2 state to 4 (losses and
                 final state equal bit for bit); then stage 3 in process
                 with gradient_accumulation_steps 2 and remat "full" and
-                "dots" (3 steps each).  Launches per step exact in every
-                run (remat's recompute counted), frozen weights unchanged,
+                "dots" (3 steps each).  On stage 3's validation output, `python
+                -m synfmc_tpu_torch.scripts.evaluate --samples-dir`: finite
+                RotErr and TransErr for every label pair; `--video-a
+                cm-0.gif --video-b real-0.gif`: a finite PSNR; decode_gif of
+                each GIF: the frame count and size of its blocks; the FID of
+                the rendered GIFs against the real one through a seeded
+                TorchScript extractor, card against CPU (fp32, TF32 off):
+                features within 1e-4, FID within 1e-3 relative.  Launches per
+                step exact in every run (remat's recompute counted), frozen
+                weights unchanged,
                 each loaded bundle named in the next stage's log, no failed
                 validation; ms per step, ms per optimizer step with
                 accumulation, peaks with and without remat, first-step
@@ -119,12 +133,25 @@ Phases, each raising on failure (non-zero exit):
                 exact launches, a wrong-length camera answered 400); the
                 command line's token ids and frames against an in-process run
                 (frames within 1e-3); load s, s/clip, GIF ms and bytes, peak.
+ 12. tools    - `python -m synfmc_tpu_torch.scripts.export_serving --verify
+                --num-inference-steps 4` at full width (the cam stage,
+                16x256x384, bf16) as a child process (torch.export of the
+                whole serving program, saved, loaded in the same process and
+                held to the live program, then a second seeded weight set
+                loaded into both), then the artifact in a fresh process
+                (`--tools-load`): its frames against the live eager
+                program's within 1e-3, its K1-K3 launches counted by kernel
+                name in a trace equal to the eager run's counters; export,
+                save and load seconds, bytes, ms a call loaded and eager,
+                peaks.
 ``--profile`` adds a torch.profiler trace of each request's denoise loop and of
 one extra train step: device time by kernel family and the device's idle
 share.  The last two lines of stdout are the kernels' JSON summary and
 {"ok": true, "device": {...}}.
 
 ``--train-files`` builds and runs phase 9 alone, ``--train-stages`` phase 10.
+``--tools`` runs phase 12, then evaluate, FID and validate_dataset on a
+samples directory and a fixture that it writes itself.
 
 ``--passes [ROOT]`` only times K1 by kernel at its three keys (32x1536x320,
 16x1536x320, 32x384x640, 8 heads) beside SDPA's forward kernels, and the
@@ -1226,6 +1253,67 @@ def serve(pipe, card: str):
     return launches, per_mode
 
 
+OP_ROUTE_SHARE = 0.01  # the op route's host cost a step, as a share of the step, above
+# which eager calls go straight to the implementations (ops/_library.py)
+
+
+def _host_us(fn, args, n: int = 50) -> float:
+    """Host microseconds a call of ``fn`` takes to issue, the device kept busy
+    behind a sleep so that no call waits on it."""
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(SLEEP_CYCLES_PER_S * 0.05))
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn(*args)
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def op_route_cost(seen, ms_per_step: float, card: str) -> dict:
+    """The host cost of reaching each forward kernel through its registered
+    op (torch.ops.synfmc.*, the dispatcher) against a direct call of the same
+    implementation, at request (a)'s most frequent key of each kernel (the
+    UNet forward's), alternating the two routes 7 times, 50 calls each; the
+    difference times the kernel's launches a step (PER_FORWARD) beside
+    request (a)'s ms per step."""
+    from synfmc_tpu_torch.ops import _library
+
+    names = {"flash": "flash_attention_fwd", "temporal": "temporal_attention_fwd",
+             "group_norm": "fused_group_norm_fwd"}
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+    rows, total_ms = {}, 0.0
+    for kind, name in names.items():
+        key = max((k for k in seen[kind] if k[0] == "unet"), key=lambda k: seen[kind][k])
+        if kind == "group_norm":
+            _, n, sl, c, groups, eps, act = key
+            args = (rnd(n, sl, c), rnd(c), rnd(c), groups, float(eps), act)
+        else:
+            _, b, sl, c, heads, scale = key
+            args = tuple(rnd(b, sl, c) for _ in range(3)) + (float(scale), heads)
+            args += (False,) if kind == "flash" else ()
+        impl, op = _library.IMPLS[name]["cuda"], _library.op(name)
+        for fn in (op, impl):  # warm both
+            fn(*args)
+        times = {"op": [], "direct": []}
+        for _ in range(7):
+            times["op"].append(_host_us(op, args))
+            times["direct"].append(_host_us(impl, args))
+        op_us, direct_us = (statistics.median(times[k]) for k in ("op", "direct"))
+        step_ms = (op_us - direct_us) * PER_FORWARD[kind] / 1e3
+        total_ms += step_ms
+        rows[kind] = dict(key=list(key[1:]), op_us=op_us, direct_us=direct_us,
+                          per_step=PER_FORWARD[kind], step_ms=step_ms)
+    share = total_ms / ms_per_step
+    route = "eager calls the implementations directly" if share > OP_ROUTE_SHARE \
+        else "the op route would do"
+    log(f"[main] op route against a direct call, host us a call (median of 7 x 50): "
+        f"{json.dumps(rows)}; {total_ms:.3f} ms a step of request (a)'s {ms_per_step:.2f} ms "
+        f"({100 * share:.2f} %; limit {100 * OP_ROUTE_SHARE:.0f} %): {route}; {card}")
+    return dict(rows=rows, step_ms=total_ms, share=share)
+
+
 # ---------------------------------------------------------------------------
 # phase entry: the user's entry points at full width, from reference-layout files
 # ---------------------------------------------------------------------------
@@ -2310,6 +2398,7 @@ def train_stages(card: str, root: str, w: dict, rates, traced, checked: set) -> 
                                        "cam_label_compute_0.txt", "cam_label_gt_0.txt"]
                       + [f"0_masks/{i}.png" for i in range(FRAMES)]
                       + [f"0_real_masks/{i}.png" for i in range(FRAMES)])
+    tools_evaluate(os.path.join(obj["run_dir"], "samples", str(VALIDATION_STEP)), card)
     for name, r, wanted in (("stage 2", cam, f"loaded stage-1 LoRA from {lora_bundle}"),
                             ("stage 3", obj, f"loaded stage-1 LoRA from {lora_bundle}"),
                             ("stage 3", obj, f"loaded stage-2 CMC from {cmc_bundle}")):
@@ -2379,6 +2468,309 @@ def train_stages(card: str, root: str, w: dict, rates, traced, checked: set) -> 
         f"{OBJ_REMAT_PER_MICRO}; {card}")
     shutil.rmtree(runs_dir, ignore_errors=True)
     return total, results
+
+
+# ---------------------------------------------------------------------------
+# phase tools: the serving export, evaluate, FID and the dataset pre-flight
+# ---------------------------------------------------------------------------
+
+EXPORT_TOL = 1e-3  # the loaded artifact's frames against the live eager program's
+FEATURE_TOL = 1e-4  # the FID extractor's features, card against CPU (fp32, TF32 off)
+FID_REL_TOL = 1e-3
+# Kernel names of each forward kernel's launches in a trace; K3's mode B is
+# gn_partials + gn_apply, one launch of the wrapper each pair.
+TRACE_NAMES = {"flash": ("flash_fwd",), "temporal": ("temporal_fwd",),
+               "group_norm": ("gn_cluster", "gn_partials")}
+TOOLS_HEAD = (f"[tools] python -m synfmc_tpu_torch.scripts.export_serving --verify at full width "
+              f"({FRAMES}x{HEIGHT}x{WIDTH}, bf16, {STEPS} DDIM steps), then the artifact in a "
+              f"fresh process against the live program")
+
+
+def run_child(cmd: list, what: str, timeout: float = 900) -> tuple[str, float]:
+    """A child process from the repo root; its stdout and wall seconds;
+    raises on a non-zero exit."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{what}: rc {proc.returncode}\n{proc.stdout[-4000:]}\n"
+                             f"{proc.stderr[-4000:]}")
+    return proc.stdout, wall
+
+
+def traced_launches(fn) -> dict:
+    """Each forward kernel's launches in one call of ``fn``, counted by
+    kernel name in a torch.profiler trace (TRACE_NAMES)."""
+    names = [name for name, _ in device_events(fn)]
+    out = {k: sum(any(m in n for m in marks) for n in names) for k, marks in TRACE_NAMES.items()}
+    applies = sum("gn_apply" in n for n in names)
+    if applies != sum("gn_partials" in n for n in names):
+        raise AssertionError(f"trace: {applies} gn_apply launches against the gn_partials'")
+    return out
+
+
+TOOLS_CALLS = 3  # timed calls of each program; their median is the call's ms
+
+
+def _timed_calls(fn, inputs, n: int = TOOLS_CALLS) -> tuple:
+    """(the first call's output, the median CUDA-event ms of ``n`` calls, the
+    peak GiB over them)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, out = [], None
+    for _ in range(n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        y = fn(*inputs)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+        out = y if out is None else out
+    return out, statistics.median(ms), torch.cuda.max_memory_allocated() / 2**30
+
+
+def tools_load(path: str) -> int:
+    """``--tools-load PATH``, the fresh process of phase tools: load the
+    artifact (importing synfmc_tpu_torch.ops registers its ops), run it on
+    the export's verify inputs (a first call, TOOLS_CALLS timed ones and a
+    traced one), then build the live program with the same seeded weights
+    and run it eagerly (a first call, then TOOLS_CALLS timed ones, the
+    launch counters from 0 before the first of those); print one JSON line:
+    load seconds, ms a call and peak of each, the traced launches and the
+    counted ones of one eager call, the frames' max error."""
+    t0 = time.perf_counter()
+    import synfmc_tpu_torch.ops  # noqa: F401  (registers torch.ops.synfmc)
+    from synfmc_tpu_torch.scripts import export_serving as es
+
+    import_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = torch.export.load(path).module()
+    load_s = time.perf_counter() - t0
+    shapes = dict(height=HEIGHT, width=WIDTH, frames=FRAMES, num_inference_steps=STEPS)
+    inputs = es.sample_inputs(shapes, torch.device("cuda"), seed=7)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        loaded(*inputs)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        got, loaded_ms, loaded_peak = _timed_calls(loaded, inputs)
+        traced = traced_launches(lambda: loaded(*inputs))
+    del loaded
+    torch.cuda.empty_cache()
+    program, _ = es.build_program(es.parse_args(["--out", path, "--num-inference-steps",
+                                                 str(STEPS)]), torch.device("cuda"))
+    with torch.no_grad():
+        program(*inputs)  # the eager program's first call
+        for fn in counters().values():
+            fn.launches = 0
+        want, eager_ms, eager_peak = _timed_calls(program, inputs)
+    eager = {k: counters()[k].launches / TOOLS_CALLS for k in TRACE_NAMES}  # a call's
+    print(json.dumps(dict(import_s=import_s, load_s=load_s, first_s=first_s, loaded_ms=loaded_ms,
+                          eager_ms=eager_ms, loaded_peak_gib=loaded_peak,
+                          eager_peak_gib=eager_peak, traced=traced, eager=eager,
+                          max_err=(got.float() - want.float()).abs().max().item(),
+                          finite=bool(torch.isfinite(got).all()))), flush=True)
+    return 0
+
+
+def tools_export(card: str) -> Counter:
+    """Phase tools: export_serving --verify as a child process, then the
+    artifact in a fresh process (``tools_load``): frames within EXPORT_TOL of
+    the live program's, the trace's K1-K3 launches equal to the eager run's
+    counters and to PER_FORWARD x STEPS + PER_REQUEST + PER_DECODE (one
+    decode call of every frame).  Returns the eager run's launches."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="synfmc_export_")
+    try:
+        path = os.path.join(root, "serve.pt2")
+        out, export_wall = run_child([sys.executable, "-m",
+                                      "synfmc_tpu_torch.scripts.export_serving", "--out", path,
+                                      "--verify", "--num-inference-steps", str(STEPS)],
+                                     "export_serving")
+        rep = json.loads(out.strip().splitlines()[-1])
+        if not rep["verify_ok"]:
+            raise AssertionError(f"export_serving --verify: {rep}")
+        log(f"  export_serving: process {export_wall:.1f} s, export {rep['export_s']:.1f} s, "
+            f"save {rep['save_s']:.1f} s, {rep['bytes']} bytes, {rep['parameters']} parameters, "
+            f"{rep['in_avals']} inputs; verify: load {rep['verify_load_s']:.1f} s, loaded vs "
+            f"live max err {rep['verify_max_err']:.3e}, a second weight set loaded into both "
+            f"{rep['verify_swap_max_err']:.3e} (frames moved by "
+            f"{rep['verify_swap_changed']:.3f}); {card}")
+        out, load_wall = run_child([sys.executable, os.path.abspath(__file__), "--tools-load",
+                                    path], "the artifact in a fresh process")
+        r = json.loads(out.strip().splitlines()[-1])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    want = Counter()
+    for _ in range(STEPS):
+        want.update(PER_FORWARD)
+    want.update(PER_REQUEST)
+    want.update(PER_DECODE)
+    want = {k: want[k] for k in TRACE_NAMES}
+    if not r["finite"] or r["max_err"] >= EXPORT_TOL:
+        raise AssertionError(f"tools: loaded frames against the live program: {r}")
+    if r["traced"] != r["eager"] or r["eager"] != want:
+        raise AssertionError(f"tools: launches traced {r['traced']}, eager {r['eager']}, "
+                             f"expected {want}")
+    log(f"  fresh process: {load_wall:.1f} s in all, imports {r['import_s']:.1f} s, "
+        f"torch.export.load {r['load_s']:.1f} s, first call {r['first_s']:.2f} s; a call "
+        f"({STEPS} steps, text and pose encode, decode; median of {TOOLS_CALLS}) loaded "
+        f"{r['loaded_ms']:.1f} ms "
+        f"({r['loaded_ms'] / STEPS:.1f} a step) against eager {r['eager_ms']:.1f} ms "
+        f"({r['eager_ms'] / STEPS:.1f} a step); peak {r['loaded_peak_gib']:.2f} / "
+        f"{r['eager_peak_gib']:.2f} GiB; K1-K3 launches traced {r['traced']} = eager "
+        f"counters {r['eager']}; frames max err {r['max_err']:.3e}; {card}")
+    return Counter({k: int(v) for k, v in r["eager"].items()})
+
+
+def _extractor(path: str) -> str:
+    """A seeded TorchScript feature extractor: three strided convs with ReLU,
+    spatial mean -> (N, 8)."""
+    class Net(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.a = torch.nn.Conv2d(3, 16, 3, stride=2, padding=1)
+            self.b = torch.nn.Conv2d(16, 16, 3, stride=2, padding=1)
+            self.c = torch.nn.Conv2d(16, 8, 3, stride=2, padding=1)
+
+        def forward(self, x):
+            h = torch.relu(self.b(torch.relu(self.a(x))))
+            return self.c(h).flatten(2).mean(dim=2)
+
+    torch.manual_seed(0)
+    torch.jit.script(Net()).save(path)
+    return path
+
+
+def tools_fid(set_a: list, set_b: list, root: str, card: str) -> None:
+    """FID of two sets of GIFs through one seeded TorchScript extractor on the
+    card and on the CPU (fp32, TF32 off): features within FEATURE_TOL, the
+    distance within FID_REL_TOL relative."""
+    from synfmc_tpu_torch.evaluation.fid import (
+        extract_features,
+        fid_from_features,
+        load_torchscript_extractor,
+    )
+    from synfmc_tpu_torch.utils.video import read_gif
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        path = _extractor(os.path.join(root, "extractor.pt"))
+        batches = {k: [(read_gif(g).astype(np.float32) / 255.0).transpose(0, 3, 1, 2)
+                       for g in gifs] for k, gifs in (("a", set_a), ("b", set_b))}
+        feats, fids = {}, {}
+        for dev in ("cuda", "cpu"):
+            ext = load_torchscript_extractor(path, None if dev == "cuda" else "cpu")
+            feats[dev] = {k: extract_features(v, ext) for k, v in batches.items()}
+            fids[dev] = fid_from_features(feats[dev]["a"], feats[dev]["b"])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    err = max(float(np.abs(feats["cuda"][k] - feats["cpu"][k]).max()) for k in ("a", "b"))
+    rel = abs(fids["cuda"] - fids["cpu"]) / max(abs(fids["cpu"]), 1e-30)
+    if not (err < FEATURE_TOL and rel < FID_REL_TOL and np.isfinite(fids["cuda"])):
+        raise AssertionError(f"tools: FID card vs CPU: features {err:.3e}, FID {fids}")
+    log(f"  FID through a seeded TorchScript extractor ({len(feats['cpu']['a'])} vs "
+        f"{len(feats['cpu']['b'])} frames, 8 features): card {fids['cuda']:.6f}, CPU "
+        f"{fids['cpu']:.6f} (relative {rel:.2e}), features max err {err:.2e}; {card}")
+
+
+def tools_evaluate(samples_dir: str, card: str) -> None:
+    """``python -m synfmc_tpu_torch.scripts.evaluate`` on a validation
+    output: finite RotErr and TransErr for every camera label pair, a finite
+    PSNR between cm-0.gif and real-0.gif; each GIF read by decode_gif with
+    the frame count and size its blocks give; then the FID of the rendered
+    GIFs against the real one, card against CPU."""
+    import glob
+
+    from synfmc_tpu_torch.utils.video import decode_gif
+
+    out, wall = run_child([sys.executable, "-m", "synfmc_tpu_torch.scripts.evaluate",
+                           "--samples-dir", samples_dir], "evaluate --samples-dir")
+    cam = json.loads(out)["camera"]
+    pairs = sorted(glob.glob(os.path.join(samples_dir, "cam_label_compute_*.txt")))
+    samples = {k: v for k, v in cam.items() if k.startswith("sample_")}
+    values = [x for v in samples.values() for key in ("rot_err_deg", "trans_err") for x in v[key]]
+    values += [v[k] for v in samples.values() for k in ("rot_err_deg_mean", "trans_err_mean")]
+    if (not pairs or len(samples) != len(pairs) or cam["aggregate"]["num_samples"] != len(pairs)
+            or not np.isfinite(values).all()):
+        raise AssertionError(f"tools: evaluate --samples-dir {samples_dir}: {cam}")
+    gifs = {os.path.basename(g): g for g in sorted(glob.glob(os.path.join(samples_dir, "*.gif")))}
+    out, wall_v = run_child([sys.executable, "-m", "synfmc_tpu_torch.scripts.evaluate",
+                             "--video-a", gifs["cm-0.gif"], "--video-b", gifs["real-0.gif"]],
+                            "evaluate --video-a --video-b")
+    video = json.loads(out)["video"]
+    if not np.isfinite(video["psnr_mean"]):
+        raise AssertionError(f"tools: evaluate --video-a cm-0.gif --video-b real-0.gif: {video}")
+    shapes = {}
+    for name, g in gifs.items():
+        data = open(g, "rb").read()
+        blocks = gif_blocks(data)
+        t0 = time.perf_counter()
+        frames = decode_gif(data)
+        want = (len(blocks["images"]), blocks["height"], blocks["width"], 3)
+        if frames.shape != want:
+            raise AssertionError(f"tools: decode_gif({name}) {frames.shape}, its blocks {want}")
+        shapes[name] = [list(frames.shape), round(1e3 * (time.perf_counter() - t0), 1)]
+    log(f"  evaluate --samples-dir ({wall:.1f} s): {len(pairs)} label pairs, RotErr "
+        f"{cam['aggregate']['rot_err_deg_mean']:.4f} deg, TransErr "
+        f"{cam['aggregate']['trans_err_mean']:.4f}; --video-a cm-0.gif --video-b real-0.gif "
+        f"({wall_v:.1f} s): PSNR {video['psnr_mean']:.3f} dB over "
+        f"{video['frames_compared']} frames; decode_gif [shape, ms]: {json.dumps(shapes)}")
+    rendered = [g for n, g in gifs.items() if n != "real-0.gif"]
+    tools_fid(rendered, [gifs["real-0.gif"]], samples_dir, card)
+
+
+def tools_validate(config: str, card: str) -> None:
+    """``python -m synfmc_tpu_torch.scripts.validate_dataset`` on a fixture's
+    config: exit 0 and an OK summary."""
+    out, wall = run_child([sys.executable, "-m", "synfmc_tpu_torch.scripts.validate_dataset",
+                           "--config", config], "validate_dataset")
+    last = out.strip().splitlines()[-1]
+    if not last.startswith("OK:"):
+        raise AssertionError(f"tools: validate_dataset: {out[-2000:]}")
+    log(f"  validate_dataset on the fixture: {last} ({wall:.1f} s)")
+
+
+def tools_alone(card: str) -> Counter:
+    """``--tools``: the export, then evaluate, FID and validate_dataset on
+    inputs written here by the package's own writers (a validation-like
+    samples directory: three GIFs and two camera label pairs; phase 9's
+    fixture dataset) where the full run takes phase 10's validation output
+    and phase 9's fixture."""
+    import shutil
+    import tempfile
+
+    import yaml
+
+    from synfmc_tpu_torch.data.fixture import build_synthetic_dataset
+    from synfmc_tpu_torch.utils.video import save_camera_label_txt, save_videos_grid
+
+    launches = tools_export(card)
+    root = tempfile.mkdtemp(prefix="synfmc_tools_")
+    try:
+        d = os.path.join(root, "samples")
+        rng = np.random.default_rng(0)
+        for name, lo, span in (("real-0.gif", 0.0, 1.0), ("cm-0.gif", 0.0, 0.3),
+                               ("omcm-0.gif", 0.05, 0.3)):  # sets far apart: FID not ~0
+            save_videos_grid(lo + span * rng.uniform(size=(1, FRAMES, HEIGHT, WIDTH, 3)),
+                             os.path.join(d, name))
+        for i in range(2):
+            for kind in ("compute", "gt"):
+                rt = np.concatenate([np.tile(np.eye(3), (FRAMES, 1, 1)),
+                                     rng.normal(size=(FRAMES, 3, 1))], -1)
+                save_camera_label_txt(os.path.join(d, f"cam_label_{kind}_{i}.txt"), "p", rt)
+        tools_evaluate(d, card)
+        with open(CAM_YAML) as fh:
+            cfg = yaml.safe_load(fh)
+        cfg["train_data"]["params"].update(build_synthetic_dataset(os.path.join(root, "data"),
+                                                                   **FIXTURE))
+        tools_validate(_write_yaml(os.path.join(root, "cam.yaml"), cfg), card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
 
 
 _FAMILIES = (  # (family, substrings of the kernel name), first match wins
@@ -2540,6 +2932,8 @@ def main() -> int:
     if args[:1] == ["--passes"]:
         return passes_only(args[1] if len(args) > 1 else REPO)
     sys.path.insert(0, REPO)
+    if args[:1] == ["--tools-load"]:
+        return tools_load(args[1])
     from synfmc_tpu_torch.data import image
     from synfmc_tpu_torch.ops import _cuda
     from synfmc_tpu_torch.pipelines.factory import build_pipeline, randomize_pipeline_
@@ -2580,6 +2974,10 @@ def main() -> int:
         finally:
             shutil.rmtree(root, ignore_errors=True)
         return 0
+    if "--tools" in args:
+        log(TOOLS_HEAD)
+        tools_alone(card[0] if card else "")
+        return 0
 
     t0 = time.perf_counter()
     # seeded weights with every conditioning path live (no checkpoint files yet); the
@@ -2613,6 +3011,7 @@ def main() -> int:
     launches, per_mode = serve(pipe, card[0] if card else "")
     log(f"[main] per mode: {json.dumps({k: {m: v[m] for m in ('ms_per_step', 'clip_s', 'launches_per_step', 'peak_gib')} for k, v in per_mode.items()})}; "
         f"{card[0] if card else ''}")
+    op_route_cost(seen, per_mode[REQUESTS[0][0]]["ms_per_step"], card[0] if card else "")
     if profile:
         for request in REQUESTS:
             profile_loop(pipe, request)
@@ -2646,6 +3045,7 @@ def main() -> int:
         log(TRAIN_FILES_HEAD)
         w = prepare_train_files(root)
         launches.update(train_files(card[0] if card else "", root, w))
+        tools_validate(w["configs"]["a"], card[0] if card else "")
         torch.cuda.empty_cache()
         log(TRAIN_STAGES_HEAD)
         checked = {(kind, r["key"][1:]) for kind, rows in results.items() for r in rows}
@@ -2666,6 +3066,9 @@ def main() -> int:
     launches.update(entry(pipe, card[0] if card else ""))
     del pipe
     torch.cuda.empty_cache()
+
+    log(TOOLS_HEAD)  # after entry: its child processes and files touch no earlier measurement
+    launches.update(tools_export(card[0] if card else ""))
 
     print(json.dumps({"kernels": summarise(results, launches)}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

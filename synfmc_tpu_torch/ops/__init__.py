@@ -1,4 +1,13 @@
-"""Attention, normalization and pixel ops; the CUDA kernels' wrappers live here."""
+"""Attention, normalization and pixel ops; the CUDA kernels' wrappers live here.
+
+Importing this package registers the kernels as ``torch.library`` ops
+(``torch.ops.synfmc.*``, ops/_library.py): a process that runs a program
+saved by ``torch.export`` (scripts/export_serving.py) imports it first.
+"""
+
+from synfmc_tpu_torch.ops import flash_attention as _flash  # noqa: F401  (registers the ops)
+from synfmc_tpu_torch.ops import fused_groupnorm as _gn  # noqa: F401
+from synfmc_tpu_torch.ops import temporal_attention as _temporal  # noqa: F401
 
 
 def kernel_launches(backward: bool = False) -> dict[str, int]:

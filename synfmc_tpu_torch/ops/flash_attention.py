@@ -23,15 +23,17 @@ asynchronous copies.  Every output is written by one block in a fixed order,
 so there is no whole-sequence limit, no atomics, and the gradients are the
 same bits on every run.
 
-On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
-launches its kernel or raises.
+Both are ``torch.library`` ops (``synfmc::flash_attention_fwd``,
+``synfmc::flash_attention_bwd``; ops/_library.py).  On a CPU tensor each
+wrapper runs its plain version; on a CUDA tensor it launches its kernel or
+raises.
 """
 
 from __future__ import annotations
 
 import torch
 
-from synfmc_tpu_torch.ops import _cuda
+from synfmc_tpu_torch.ops import _cuda, _library
 
 MAX_HEAD_DIM = 256
 WGMMA_MAX_HEAD_DIM = 128
@@ -71,16 +73,23 @@ def _merge(xh, dtype):
     return xh.transpose(1, 2).reshape(b, s, h * d).to(dtype)
 
 
+def _plain(q2, k2, v2, scale: float, heads: int):
+    """(out, lse): :func:`flash_attention_plain` and the fp32 (B, H, S)
+    log-sum-exp of the scaled logits."""
+    qh = _heads((q2.float() * scale).to(q2.dtype), heads)
+    logits = qh @ _heads(k2, heads).transpose(-1, -2)
+    m = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - m)
+    den = p.sum(dim=-1, keepdim=True)
+    o = (p.to(v2.dtype).float() @ _heads(v2, heads)) / den
+    return _merge(o, q2.dtype), (m + torch.log(den))[..., 0]
+
+
 def flash_attention_plain(q2, k2, v2, scale: float, heads: int) -> torch.Tensor:
     """_fwd_packed_kernel's math on (B, S, H*D): q scaled in its own type,
     fp32 logits and softmax, P cast to v's type for PV (fp32 accumulation),
     the denominator dividing the output."""
-    qh = _heads((q2.float() * scale).to(q2.dtype), heads)
-    logits = qh @ _heads(k2, heads).transpose(-1, -2)
-    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
-    den = p.sum(dim=-1, keepdim=True)
-    o = (p.to(v2.dtype).float() @ _heads(v2, heads)) / den
-    return _merge(o, q2.dtype)
+    return _plain(q2, k2, v2, scale, heads)[0]
 
 
 def flash_attention_bwd_plain(q2, k2, v2, do2, scale: float, heads: int):
@@ -137,36 +146,43 @@ def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def flash_attention_fwd(q2, k2, v2, scale: float, heads: int, with_lse: bool = False):
-    """K1: (out, lse) with lse the fp32 (B, H, S) log-sum-exp of the scaled
-    logits when ``with_lse`` (None otherwise, and always None on the CPU,
-    whose plain backward recomputes the softmax)."""
-    b, s, d = _check_shapes("flash_attention", q2, (k2, v2), heads)
-    if q2.device.type == "cpu":
-        return flash_attention_plain(q2, k2, v2, scale, heads), None
+def _fwd_cuda(q2, k2, v2, scale: float, heads: int, with_lse: bool):
+    """K1's launch: (out, lse), lse empty unless ``with_lse``."""
+    b, s, c = q2.shape
+    d = c // heads
     _check_cuda("flash_attention", (q2, k2, v2), q2.dtype)
     name = "synfmc_flash_fwd_bf16" if q2.dtype == torch.bfloat16 else "synfmc_flash_fwd_f32"
     P, I, F32 = _cuda.P, _cuda.I, _cuda.F32
     fn = _cuda.entry("flash_fwd", name, [P, P, P, P, P, I, I, I, I, F32, P])
     out = torch.empty_like(q2)
-    lse = (torch.empty((b, heads, s), device=q2.device, dtype=torch.float32)
-           if with_lse else None)
+    lse = torch.empty((b, heads, s) if with_lse else (0,), device=q2.device,
+                      dtype=torch.float32)
     err = fn(q2.data_ptr(), k2.data_ptr(), v2.data_ptr(), out.data_ptr(),
              lse.data_ptr() if with_lse else None, b, s, heads, d, float(scale), _stream(q2))
     if err and q2.dtype == torch.bfloat16:
         need = _cuda.entry("flash_fwd", "synfmc_flash_fwd_bf16_smem", [I])(d)
         _cuda.check(err, f"flash_attention (head dim {d}: {need} bytes of shared memory a block)")
     _cuda.check(err, "flash_attention")
-    flash_attention.launches += 1
     return out, lse
 
 
-def flash_attention_bwd(q2, k2, v2, out, lse, do2, scale: float, heads: int):
-    """K5/K6/K7: (dq, dk, dv) of the packed attention, from K1's output and
-    log-sum-exp on a CUDA tensor, from the plain recompute on a CPU one."""
-    b, s, d = _check_shapes("flash_attention_bwd", q2, (k2, v2, do2), heads)
-    if q2.device.type == "cpu":
-        return flash_attention_bwd_plain(q2, k2, v2, do2, scale, heads)
+def _fwd_cpu(q2, k2, v2, scale: float, heads: int, with_lse: bool):
+    if with_lse:
+        out, lse = _plain(q2, k2, v2, scale, heads)
+        return out, lse.contiguous()
+    return flash_attention_plain(q2, k2, v2, scale, heads), q2.new_empty((0,), dtype=torch.float32)
+
+
+def _fwd_fake(q2, k2, v2, scale: float, heads: int, with_lse: bool):
+    b, s, _ = q2.shape
+    return (torch.empty_like(q2),
+            q2.new_empty((b, heads, s) if with_lse else (0,), dtype=torch.float32))
+
+
+def _bwd_cuda(q2, k2, v2, out, lse, do2, scale: float, heads: int):
+    """K5-K7's launches: (dq, dk, dv) from K1's output and log-sum-exp."""
+    b, s, c = q2.shape
+    d = c // heads
     _check_cuda("flash_attention_bwd", (q2, k2, v2, out, do2), q2.dtype)
     if lse is None or lse.dtype != torch.float32 or tuple(lse.shape) != (b, heads, s):
         raise ValueError("flash_attention_bwd: needs K1's fp32 (B, H, S) log-sum-exp")
@@ -184,8 +200,47 @@ def flash_attention_bwd(q2, k2, v2, out, lse, do2, scale: float, heads: int):
              lse.data_ptr(), do2.data_ptr(), delta.data_ptr(), *scratch, dq.data_ptr(),
              dk.data_ptr(), dv.data_ptr(), b, s, heads, d, float(scale), _stream(q2))
     _cuda.check(err, "flash_attention_bwd")
-    flash_attention_bwd.launches += 1
     return dq, dk, dv
+
+
+def _bwd_cpu(q2, k2, v2, out, lse, do2, scale: float, heads: int):
+    return flash_attention_bwd_plain(q2, k2, v2, do2, scale, heads)
+
+
+def _bwd_fake(q2, k2, v2, out, lse, do2, scale: float, heads: int):
+    return torch.empty_like(q2), torch.empty_like(k2), torch.empty_like(v2)
+
+
+_library.define("flash_attention_fwd",
+                "(Tensor q2, Tensor k2, Tensor v2, float scale, int heads, bool with_lse)"
+                " -> (Tensor, Tensor)", _fwd_cpu, _fwd_cuda, _fwd_fake)
+_library.define("flash_attention_bwd",
+                "(Tensor q2, Tensor k2, Tensor v2, Tensor out, Tensor? lse, Tensor do2,"
+                " float scale, int heads) -> (Tensor, Tensor, Tensor)",
+                _bwd_cpu, _bwd_cuda, _bwd_fake)
+
+
+def flash_attention_fwd(q2, k2, v2, scale: float, heads: int, with_lse: bool = False):
+    """K1 (``synfmc::flash_attention_fwd``): (out, lse) with lse the fp32
+    (B, H, S) log-sum-exp of the scaled logits when ``with_lse``, else None."""
+    _check_shapes("flash_attention", q2, (k2, v2), heads)
+    out, lse = _library.call("flash_attention_fwd", q2, k2, v2, float(scale), int(heads),
+                             bool(with_lse))
+    if _library.counts(q2):
+        flash_attention.launches += 1
+    return out, (lse if with_lse else None)
+
+
+def flash_attention_bwd(q2, k2, v2, out, lse, do2, scale: float, heads: int):
+    """K5/K6/K7 (``synfmc::flash_attention_bwd``): (dq, dk, dv) of the packed
+    attention, from K1's output and log-sum-exp on a CUDA tensor, from the
+    plain recompute on a CPU one."""
+    _check_shapes("flash_attention_bwd", q2, (k2, v2, do2), heads)
+    grads = _library.call("flash_attention_bwd", q2, k2, v2, out, lse, do2, float(scale),
+                          int(heads))
+    if _library.counts(q2):
+        flash_attention_bwd.launches += 1
+    return grads
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -12,8 +12,9 @@ The backward is PyTorch ops on both devices (:func:`group_norm_bwd`), as the
 JAX package's _fused_gn_bwd differentiates its XLA path: there is no
 backward kernel to port.
 
-On a CPU tensor the forward runs :func:`group_norm_plain`; on a CUDA tensor
-it launches the kernel or raises.
+The forward is a ``torch.library`` op (``synfmc::fused_group_norm_fwd``;
+ops/_library.py).  On a CPU tensor it runs :func:`group_norm_plain`; on a
+CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from synfmc_tpu_torch.ops import _cuda
+from synfmc_tpu_torch.ops import _cuda, _library
 
 _ACTS = {None: 0, "silu": 1, "relu": 2}
 _MAX_C = 6144  # group_norm_supported's channel limit: a mode-B stats block stays in the opt-in
@@ -226,27 +227,20 @@ def _entry(dtype: torch.dtype):
     return _cuda.entry("group_norm", name, [P, P, P, P, P, I, I, I, I, F32, I, I, I, I, I, I, I, P])
 
 
-def fused_group_norm_fwd(x, scale, bias, num_groups: int, eps: float = 1e-5,
-                         act: Optional[str] = None) -> torch.Tensor:
-    """K3: x (N, ..., C) channel-last, contiguous -> same shape; per-sample
-    group statistics (torch.nn.GroupNorm semantics)."""
+def _fwd_cuda(x, scale, bias, num_groups: int, eps: float, act: Optional[str]):
+    """K3's launch: its plan, then one or two kernels.  An x off 16 bytes is
+    copied first."""
     n, c = x.shape[0], x.shape[-1]
-    if c % num_groups:
-        raise ValueError(f"channels {c} not divisible by groups {num_groups}")
-    if act not in _ACTS:
-        raise ValueError(f"unknown fused activation {act!r}")
-    if x.device.type == "cpu":
-        return group_norm_plain(x, scale, bias, num_groups, eps, act)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_group_norm: unsupported device {x.device}")
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"fused_group_norm: dtype {x.dtype} not supported")
     if not x.is_contiguous():
         raise ValueError("fused_group_norm: x must be contiguous (channel-last)")
     s = x.numel() // (n * c)
-    if not group_norm_supported(s, c) or x.data_ptr() % 16:
-        raise ValueError(f"fused_group_norm: unsupported slab (S={s}, C={c}) or alignment")
+    if not group_norm_supported(s, c):
+        raise ValueError(f"fused_group_norm: unsupported slab (S={s}, C={c})")
     fn = _entry(x.dtype)
+    if x.data_ptr() % 16:
+        x = x.clone()
     p = _plan(n, s, c, num_groups, x.element_size())
     parts = 0 if p.mode == "A" else n * _cdiv(_cdiv(s, p.rows), p.cluster) * num_groups * 2
     out = torch.empty_like(x)
@@ -258,7 +252,36 @@ def fused_group_norm_fwd(x, scale, bias, num_groups: int, eps: float = 1e-5,
              n, s, c, num_groups, float(eps), _ACTS[act], "AB".index(p.mode), p.run, p.cluster,
              p.rows, p.vec, p.smem, torch.cuda.current_stream(x.device).cuda_stream)
     _cuda.check(err, "group_norm")
-    fused_group_norm.launches += 1
+    return out
+
+
+def _fwd_cpu(x, scale, bias, num_groups: int, eps: float, act: Optional[str]):
+    return group_norm_plain(x, scale, bias, num_groups, eps, act).contiguous()
+
+
+def _fwd_fake(x, scale, bias, num_groups: int, eps: float, act: Optional[str]):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
+_library.define("fused_group_norm_fwd",
+                "(Tensor x, Tensor scale, Tensor bias, int num_groups, float eps, str? act)"
+                " -> Tensor", _fwd_cpu, _fwd_cuda, _fwd_fake)
+
+
+def fused_group_norm_fwd(x, scale, bias, num_groups: int, eps: float = 1e-5,
+                         act: Optional[str] = None) -> torch.Tensor:
+    """K3 (``synfmc::fused_group_norm_fwd``): x (N, ..., C) channel-last,
+    contiguous -> same shape; per-sample group statistics (torch.nn.GroupNorm
+    semantics)."""
+    c = x.shape[-1]
+    if c % num_groups:
+        raise ValueError(f"channels {c} not divisible by groups {num_groups}")
+    if act not in _ACTS:
+        raise ValueError(f"unknown fused activation {act!r}")
+    out = _library.call("fused_group_norm_fwd", x, scale, bias, int(num_groups), float(eps),
+                        act)
+    if _library.counts(x):
+        fused_group_norm.launches += 1
     return out
 
 

@@ -17,6 +17,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from synfmc_tpu_torch.ops import _library
 from synfmc_tpu_torch.ops.fused_groupnorm import (
     fused_group_norm,
     group_norm_plain,
@@ -31,7 +32,7 @@ def group_norm(x, scale, bias, num_groups: int, eps: float = 1e-5,
     n, c = x.shape[0], x.shape[-1]
     if not group_norm_supported(x.numel() // max(n * c, 1), c):
         return group_norm_plain(x, scale, bias, num_groups, eps, act)
-    if x.data_ptr() % 16:
+    if not _library.tracing() and x.data_ptr() % 16:  # a traced call: K3's launch copies it
         x = x.clone()
     return fused_group_norm(x, scale, bias, num_groups, eps=eps, act=act)
 

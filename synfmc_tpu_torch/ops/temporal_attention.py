@@ -14,15 +14,17 @@ dO with cp.async, recomputes its F x F softmax, and runs the five products
 on mma.sync tensor cores (bf16; the fp32 instance stays on the CUDA cores),
 with no cross-block sum.
 
-On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
-launches its kernel or raises.
+Both are ``torch.library`` ops (``synfmc::temporal_attention_fwd``,
+``synfmc::temporal_attention_bwd``; ops/_library.py).  On a CPU tensor each
+wrapper runs its plain version; on a CUDA tensor it launches its kernel or
+raises.
 """
 
 from __future__ import annotations
 
 import torch
 
-from synfmc_tpu_torch.ops import _cuda
+from synfmc_tpu_torch.ops import _cuda, _library
 from synfmc_tpu_torch.ops.flash_attention import _check_cuda, _stream
 
 MAX_FRAMES = 64
@@ -124,38 +126,68 @@ def _check_shapes(name, q2, others, heads, unit: int):
     return n, f, d
 
 
-def temporal_attention_fwd(q2, k2, v2, scale: float, heads: int) -> torch.Tensor:
-    """K2: self-attention over F positions of each of N rows, (N, F, H*D)."""
-    n, f, d = _check_shapes("temporal_attention", q2, (k2, v2), heads, 0)
-    if q2.device.type == "cpu":
-        return temporal_attention_plain(q2, k2, v2, scale, heads)
+def _fwd_cuda(q2, k2, v2, scale: float, heads: int):
+    """K2's launch."""
+    n, f, c = q2.shape
     _check_cuda("temporal_attention", (q2, k2, v2), q2.dtype)
     name = "synfmc_temporal_fwd_bf16" if q2.dtype == torch.bfloat16 else "synfmc_temporal_fwd_f32"
     P, I, F32 = _cuda.P, _cuda.I, _cuda.F32
     fn = _cuda.entry("temporal_fwd", name, [P, P, P, P, I, I, I, I, F32, P])
     out = torch.empty_like(q2)
-    err = fn(q2.data_ptr(), k2.data_ptr(), v2.data_ptr(), out.data_ptr(), n, f, heads, d,
-             float(scale), _stream(q2))
+    err = fn(q2.data_ptr(), k2.data_ptr(), v2.data_ptr(), out.data_ptr(), n, f, heads,
+             c // heads, float(scale), _stream(q2))
     _cuda.check(err, "temporal_attention")
-    temporal_attention.launches += 1
     return out
 
 
-def temporal_attention_bwd(q2, k2, v2, do2, scale: float, heads: int):
-    """K8: (dq, dk, dv) of the packed temporal attention."""
-    n, f, d = _check_shapes("temporal_attention_bwd", q2, (k2, v2, do2), heads, 1)
-    if q2.device.type == "cpu":
-        return temporal_attention_bwd_plain(q2, k2, v2, do2, scale, heads)
+def _fwd_fake(q2, k2, v2, scale: float, heads: int):
+    return torch.empty_like(q2)
+
+
+def _bwd_cuda(q2, k2, v2, do2, scale: float, heads: int):
+    """K8's launch."""
+    n, f, c = q2.shape
     _check_cuda("temporal_attention_bwd", (q2, k2, v2, do2), q2.dtype)
     name = "synfmc_temporal_bwd_bf16" if q2.dtype == torch.bfloat16 else "synfmc_temporal_bwd_f32"
     P, I, F32 = _cuda.P, _cuda.I, _cuda.F32
     fn = _cuda.entry("temporal_bwd", name, [P] * 7 + [I, I, I, I, F32, P])
     dq, dk, dv = torch.empty_like(q2), torch.empty_like(k2), torch.empty_like(v2)
     err = fn(q2.data_ptr(), k2.data_ptr(), v2.data_ptr(), do2.data_ptr(), dq.data_ptr(),
-             dk.data_ptr(), dv.data_ptr(), n, f, heads, d, float(scale), _stream(q2))
+             dk.data_ptr(), dv.data_ptr(), n, f, heads, c // heads, float(scale), _stream(q2))
     _cuda.check(err, "temporal_attention_bwd")
-    temporal_attention_bwd.launches += 1
     return dq, dk, dv
+
+
+def _bwd_fake(q2, k2, v2, do2, scale: float, heads: int):
+    return torch.empty_like(q2), torch.empty_like(k2), torch.empty_like(v2)
+
+
+_library.define("temporal_attention_fwd",
+                "(Tensor q2, Tensor k2, Tensor v2, float scale, int heads) -> Tensor",
+                temporal_attention_plain, _fwd_cuda, _fwd_fake)
+_library.define("temporal_attention_bwd",
+                "(Tensor q2, Tensor k2, Tensor v2, Tensor do2, float scale, int heads)"
+                " -> (Tensor, Tensor, Tensor)", temporal_attention_bwd_plain, _bwd_cuda, _bwd_fake)
+
+
+def temporal_attention_fwd(q2, k2, v2, scale: float, heads: int) -> torch.Tensor:
+    """K2 (``synfmc::temporal_attention_fwd``): self-attention over F
+    positions of each of N rows, (N, F, H*D)."""
+    _check_shapes("temporal_attention", q2, (k2, v2), heads, 0)
+    out = _library.call("temporal_attention_fwd", q2, k2, v2, float(scale), int(heads))
+    if _library.counts(q2):
+        temporal_attention.launches += 1
+    return out
+
+
+def temporal_attention_bwd(q2, k2, v2, do2, scale: float, heads: int):
+    """K8 (``synfmc::temporal_attention_bwd``): (dq, dk, dv) of the packed
+    temporal attention."""
+    _check_shapes("temporal_attention_bwd", q2, (k2, v2, do2), heads, 1)
+    grads = _library.call("temporal_attention_bwd", q2, k2, v2, do2, float(scale), int(heads))
+    if _library.counts(q2):
+        temporal_attention_bwd.launches += 1
+    return grads
 
 
 class _TemporalAttention(torch.autograd.Function):
