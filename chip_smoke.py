@@ -5,6 +5,7 @@
     python3 chip_smoke.py --train-files
     python3 chip_smoke.py --train-stages
     python3 chip_smoke.py --tools
+    python3 chip_smoke.py --mesh
     python3 chip_smoke.py --passes [ROOT]
 
 Phases, each raising on failure (non-zero exit):
@@ -30,7 +31,8 @@ Phases, each raising on failure (non-zero exit):
                 place, fp32 within 2**-16 relative);
   4. compose  - the tiny-width obj-stage pipeline in fp32 on the GPU (kernels)
                 and on the CPU (plain versions) with the same weights and
-                inputs: one OMC request with traj features from a raster
+                inputs: one OMC request (8 frames at 256x384) with traj
+                features from a raster
                 through the ObjectAdapter, then DPM-Solver++(2M), DeepCache,
                 CFG-cache, turbo + DPM++ and multidiff windows with a chunked
                 decode: final latents (and the chunked decode's frames)
@@ -116,6 +118,30 @@ Phases, each raising on failure (non-zero exit):
                 validation; ms per step, ms per optimizer step with
                 accumulation, peaks with and without remat, first-step
                 seconds, checkpoint bytes, validation seconds;
+ mesh.        - the multi-GPU path on the one card, as `python -m
+                torch.distributed.run` children of this script
+                (`--mesh-child`): (a) NCCL at world size 1: `generate
+                --data-parallel 1` on request (a)'s shape (a seeded OMC
+                bundle, a pan camera file, seeded objects) against the same
+                command in this process, and 2 `train("cam")` steps with
+                `mesh: {data: 1}` against phase 7's (frames and losses bit
+                for bit); (b) 2 ranks over gloo on cuda:0, data-parallel: two
+                prompts of request (a)'s shape, each rank's frames against
+                its prompt's batch-1 run here bit for bit; (c) 4 ranks, data
+                2 x sp 2, request (a) frame-parallel (finite latents, the
+                difference from the single run reported), then the tiny fp32
+                pipeline in exact + OMC, turbo + DPM++, DeepCache and
+                CFG-cache within 1e-3 of the single run; (d) 2 ranks:
+                `train("cam")` at full width on {data: 2}, then {sp: 2}, 2
+                steps each (replica checksums equal bit for bit), and phase
+                5's tiny step on both meshes against one process on the
+                concatenated batch with phase 5's limits; (e) a SIGTERM on
+                rank 1 of a tiny {data: 2} run stops both ranks at the same
+                step.  Launches exact per rank everywhere; ms a step a rank,
+                bytes the collectives sent, their host seconds and traced
+                device ms, peaks.  Ranks that share the card run over gloo
+                (NCCL refuses two ranks on one device): the mesh is shown
+                right, not its scaling;
  11. entry    - the user's entry points at full width, last: phase 6's
                 weights (rebuilt from the same seed) written as
                 reference-layout files (an SD1.5 diffusers directory with
@@ -134,7 +160,7 @@ Phases, each raising on failure (non-zero exit):
                 command line's token ids and frames against an in-process run
                 (frames within 1e-3); load s, s/clip, GIF ms and bytes, peak.
  12. tools    - `python -m synfmc_tpu_torch.scripts.export_serving --verify
-                --num-inference-steps 4` at full width (the cam stage,
+                --num-inference-steps 2` at full width (the cam stage,
                 16x256x384, bf16) as a child process (torch.export of the
                 whole serving program, saved, loaded in the same process and
                 held to the live program, then a second seeded weight set
@@ -151,7 +177,8 @@ share.  The last two lines of stdout are the kernels' JSON summary and
 
 ``--train-files`` builds and runs phase 9 alone, ``--train-stages`` phase 10.
 ``--tools`` runs phase 12, then evaluate, FID and validate_dataset on a
-samples directory and a fixture that it writes itself.
+samples directory and a fixture that it writes itself.  ``--mesh`` builds and
+runs the mesh phase alone and ends with {"ok": true, ...}.
 
 ``--passes [ROOT]`` only times K1 by kernel at its three keys (32x1536x320,
 16x1536x320, 32x384x640, 8 heads) beside SDPA's forward kernels, and the
@@ -957,13 +984,16 @@ def tiny_config(mixed_precision: bool, path: str = CAM_YAML):
     return cfg
 
 
+# Phase 4's OMC request runs at the serving resolution on 8 frames (at 16 its
+# CPU side took ~30 s of the script's 1200, which the mesh phase needs).
+COMPOSE_FRAMES = 8
 # Composition cases: (label, frames, height, width, objects?, pipeline
-# arguments).  The first is one OMC request at the serving size; the modes
+# arguments).  The first is one OMC request at the serving resolution; the modes
 # run at 8 frames of 128x192, where K1 still takes level 0 (384 tokens); the
 # multidiff windows of 8 frames overlap by 4 (12 frames, within the pose
 # encoder's 16 positions) and decode 4 frames a call.
 COMPOSE_CASES = [
-    ("omc", FRAMES, HEIGHT, WIDTH, True, {}),
+    ("omc", COMPOSE_FRAMES, HEIGHT, WIDTH, True, {}),
     ("dpmpp", 8, 128, 192, True, dict(solver="dpmpp_2m")),
     ("deepcache", 8, 128, 192, True, dict(deepcache_interval=2)),
     ("cfgcache", 8, 128, 192, True, dict(cfg_cache_interval=2)),
@@ -1856,7 +1886,7 @@ def train_main(profile: bool):
     steps = len(per_step)
     seen = {k: Counter({key: n // steps for key, n in v.items()}) for k, v in rec.seen.items()}
     return dict(ms=ms, peak=peak, launches=train_launches, seen=seen,
-                trainable=out["trainable_params"])
+                trainable=out["trainable_params"], losses=out["losses"])
 
 
 # ---------------------------------------------------------------------------
@@ -2481,8 +2511,12 @@ FID_REL_TOL = 1e-3
 # gn_partials + gn_apply, one launch of the wrapper each pair.
 TRACE_NAMES = {"flash": ("flash_fwd",), "temporal": ("temporal_fwd",),
                "group_norm": ("gn_cluster", "gn_partials")}
+# Denoise steps of the exported serving program: 2, not the serving phase's 4,
+# to keep the whole script within its time with the mesh phase (tracing time
+# grows with the unrolled steps; the checks do not change).
+TOOLS_STEPS = 2
 TOOLS_HEAD = (f"[tools] python -m synfmc_tpu_torch.scripts.export_serving --verify at full width "
-              f"({FRAMES}x{HEIGHT}x{WIDTH}, bf16, {STEPS} DDIM steps), then the artifact in a "
+              f"({FRAMES}x{HEIGHT}x{WIDTH}, bf16, {TOOLS_STEPS} DDIM steps), then the artifact in a "
               f"fresh process against the live program")
 
 
@@ -2546,7 +2580,7 @@ def tools_load(path: str) -> int:
     t0 = time.perf_counter()
     loaded = torch.export.load(path).module()
     load_s = time.perf_counter() - t0
-    shapes = dict(height=HEIGHT, width=WIDTH, frames=FRAMES, num_inference_steps=STEPS)
+    shapes = dict(height=HEIGHT, width=WIDTH, frames=FRAMES, num_inference_steps=TOOLS_STEPS)
     inputs = es.sample_inputs(shapes, torch.device("cuda"), seed=7)
     with torch.no_grad():
         t0 = time.perf_counter()
@@ -2558,7 +2592,7 @@ def tools_load(path: str) -> int:
     del loaded
     torch.cuda.empty_cache()
     program, _ = es.build_program(es.parse_args(["--out", path, "--num-inference-steps",
-                                                 str(STEPS)]), torch.device("cuda"))
+                                                 str(TOOLS_STEPS)]), torch.device("cuda"))
     with torch.no_grad():
         program(*inputs)  # the eager program's first call
         for fn in counters().values():
@@ -2577,7 +2611,7 @@ def tools_export(card: str) -> Counter:
     """Phase tools: export_serving --verify as a child process, then the
     artifact in a fresh process (``tools_load``): frames within EXPORT_TOL of
     the live program's, the trace's K1-K3 launches equal to the eager run's
-    counters and to PER_FORWARD x STEPS + PER_REQUEST + PER_DECODE (one
+    counters and to PER_FORWARD x TOOLS_STEPS + PER_REQUEST + PER_DECODE (one
     decode call of every frame).  Returns the eager run's launches."""
     import shutil
     import tempfile
@@ -2587,7 +2621,7 @@ def tools_export(card: str) -> Counter:
         path = os.path.join(root, "serve.pt2")
         out, export_wall = run_child([sys.executable, "-m",
                                       "synfmc_tpu_torch.scripts.export_serving", "--out", path,
-                                      "--verify", "--num-inference-steps", str(STEPS)],
+                                      "--verify", "--num-inference-steps", str(TOOLS_STEPS)],
                                      "export_serving")
         rep = json.loads(out.strip().splitlines()[-1])
         if not rep["verify_ok"]:
@@ -2604,7 +2638,7 @@ def tools_export(card: str) -> Counter:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     want = Counter()
-    for _ in range(STEPS):
+    for _ in range(TOOLS_STEPS):
         want.update(PER_FORWARD)
     want.update(PER_REQUEST)
     want.update(PER_DECODE)
@@ -2616,10 +2650,10 @@ def tools_export(card: str) -> Counter:
                              f"expected {want}")
     log(f"  fresh process: {load_wall:.1f} s in all, imports {r['import_s']:.1f} s, "
         f"torch.export.load {r['load_s']:.1f} s, first call {r['first_s']:.2f} s; a call "
-        f"({STEPS} steps, text and pose encode, decode; median of {TOOLS_CALLS}) loaded "
+        f"({TOOLS_STEPS} steps, text and pose encode, decode; median of {TOOLS_CALLS}) loaded "
         f"{r['loaded_ms']:.1f} ms "
-        f"({r['loaded_ms'] / STEPS:.1f} a step) against eager {r['eager_ms']:.1f} ms "
-        f"({r['eager_ms'] / STEPS:.1f} a step); peak {r['loaded_peak_gib']:.2f} / "
+        f"({r['loaded_ms'] / TOOLS_STEPS:.1f} a step) against eager {r['eager_ms']:.1f} ms "
+        f"({r['eager_ms'] / TOOLS_STEPS:.1f} a step); peak {r['loaded_peak_gib']:.2f} / "
         f"{r['eager_peak_gib']:.2f} GiB; K1-K3 launches traced {r['traced']} = eager "
         f"counters {r['eager']}; frames max err {r['max_err']:.3e}; {card}")
     return Counter({k: int(v) for k, v in r["eager"].items()})
@@ -2770,6 +2804,523 @@ def tools_alone(card: str) -> Counter:
         tools_validate(_write_yaml(os.path.join(root, "cam.yaml"), cfg), card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase mesh: the multi-GPU path on the one card
+# ---------------------------------------------------------------------------
+
+MESH_HEAD = ("[mesh] one process a rank under python -m torch.distributed.run on the one card: "
+             "(a) NCCL at world size 1, (b) data-parallel serving on 2 ranks, (c) frame-parallel "
+             "serving on 4 (data 2 x sp 2), (d) training on 2 (data 2, then sp 2), (e) the "
+             "collective stop; (b)-(e) over gloo on cuda:0 (NCCL refuses two ranks on one "
+             "device), so these runs show the mesh right, not its scaling; every collective runs "
+             "on the CUDA tensors themselves, gloo's included (none is staged through the host)")
+MESH_STEPS = 2  # full-width train steps a mesh
+MESH_TINY = [c for c in COMPOSE_CASES if c[0] in ("omc", "turbo+dpmpp", "deepcache", "cfgcache")]
+MESH_STOP_AT = 2  # rank 1 sends itself SIGTERM after this step
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _torchrun_cmd(n: int, args: list) -> list:
+    return [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(n),
+            "--master-port", str(_free_port()), *args]
+
+
+def torchrun(n: int, args: list, what: str, timeout: float = 600) -> tuple[str, float]:
+    """``python -m torch.distributed.run --nproc-per-node n`` args, from the repo root."""
+    return run_child(_torchrun_cmd(n, args), what, timeout)
+
+
+class Background:
+    """A child process started now and waited for later (its output in a file)."""
+
+    def __init__(self, cmd: list, log_path: str):
+        self.t0, self.log_path = time.perf_counter(), log_path
+        self.fh = open(log_path, "w")
+        self.proc = subprocess.Popen(cmd, cwd=REPO, stdout=self.fh, stderr=subprocess.STDOUT)
+
+    def wait(self, what: str, timeout: float = 900) -> float:
+        """Its wall seconds; raises on a non-zero exit (or kills it at the timeout)."""
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+            self.fh.close()
+        if rc != 0:
+            with open(self.log_path) as fh:
+                raise AssertionError(f"{what}: rc {rc}\n{fh.read()[-6000:]}")
+        return time.perf_counter() - self.t0
+
+
+def mesh_inputs(pipe, n: int, frames: int = FRAMES, height: int = HEIGHT, width: int = WIDTH):
+    """Request (a)'s inputs for ``n`` prompts on the pipeline's device:
+    seeded latents, the pan camera's rays, each prompt's seeded objects."""
+    gen = torch.Generator().manual_seed(300)
+    latents = torch.randn((n, frames, height // 8, width // 8, 4), generator=gen) \
+        * pipe.schedule.init_noise_sigma
+    rays = plucker(pipe, "pan", frames, height, width).expand(n, -1, -1, -1, -1)
+    traj = [object_traj(pipe, 400 + i, frames, height, width) for i in range(n)]
+    return latents.to(pipe.device), rays, [torch.cat(t) for t in zip(*traj)]
+
+
+def mesh_request(pipe, prompts, inputs, kw=None, steps: int = STEPS, decode: bool = True,
+                 frames: int = FRAMES, height: int = HEIGHT, width: int = WIDTH) -> dict:
+    """One request through AnimationPipeline.__call__ (the pipeline's mesh, if
+    any): the latents, the frames, ms per denoise step (CUDA events between
+    steps), the launches of the kernels from zero, the collectives' calls and
+    bytes sent, and the peak."""
+    from synfmc_tpu_torch.parallel import collectives
+    from synfmc_tpu_torch.pipelines.animation import decode_latents
+
+    latents, rays, traj = inputs
+    events = []
+
+    def on_step(idx, t):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    collectives.reset_counters()
+    for fn in counters().values():
+        fn.launches = 0
+    with torch.inference_mode():
+        lat = pipe(prompts, video_length=frames, height=height, width=width,
+                   num_inference_steps=steps, guidance_scale=GUIDANCE, latents=latents,
+                   plucker=rays, traj_features=traj, omcm_min_step=300 if height < HEIGHT else OMCM,
+                   decode=False, on_step=on_step, **(kw or {}))
+        video = decode_latents(pipe.vae, lat, mesh=pipe.mesh) if decode else None
+    torch.cuda.synchronize()
+    steps_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    return {"latents": lat.float().cpu(), "video": None if video is None else video.float().cpu(),
+            "ms_per_step": statistics.mean(steps_ms) if steps_ms else float("nan"),
+            "launches": {k: fn.launches for k, fn in counters().items()},
+            "calls": dict(collectives.CALLS), "bytes": dict(collectives.BYTES),
+            "host_s": dict(collectives.SECONDS), "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def full_pipe(**kw):
+    """The flagship obj-stage pipeline of phase 6 (seeded, every path live)."""
+    from synfmc_tpu_torch.pipelines.factory import build_pipeline, randomize_pipeline_
+
+    return randomize_pipeline_(build_pipeline(OBJ_YAML, stage="obj", seed=0,
+                                              allow_untrained_cm=True, **kw)[0], 0)
+
+
+def tiny_pipe(**kw):
+    """Phase 4's tiny obj-stage pipeline in fp32 (seeded, every path live)."""
+    from synfmc_tpu_torch.pipelines.factory import build_pipeline, randomize_pipeline_
+
+    cfg = tiny_config(mixed_precision=False, path=OBJ_YAML)
+    return randomize_pipeline_(build_pipeline(cfg, stage="obj", dtype=torch.float32, seed=0,
+                                              allow_untrained_cm=True, **kw)[0], 0)
+
+
+def tiny_train_steps(mesh_sizes: dict) -> dict:
+    """Phase 5's tiny stage-2 model in fp32 on a training mesh (one rank
+    without a process group): 2 steps on global batches of 2 samples with
+    global draws, each rank on its part.  The first step's loss and averaged
+    gradients, the trainable tensors after the 2 AdamW steps (on the CPU)."""
+    from synfmc_tpu_torch.data.tokenizer import HashTokenizer
+    from synfmc_tpu_torch.diffusion.scheduler import DiffusionSchedule
+    from synfmc_tpu_torch.parallel.mesh import shard, training_mesh
+    from synfmc_tpu_torch.pipelines.factory import build_models, init_random_
+    from synfmc_tpu_torch.training.optim import make_optimizer
+    from synfmc_tpu_torch.training.params import partition_params, stage2_cmc_unet_trainable
+    from synfmc_tpu_torch.training.steps import (
+        average_over,
+        apply_grads,
+        draw_cam,
+        init_train_state,
+        make_cam_grads_fn,
+    )
+    from synfmc_tpu_torch.training.trainers import host_batch, step_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = training_mesh(**mesh_sizes)
+    cfg = tiny_config(mixed_precision=False)
+    scfg = step_config(cfg, "cam")
+    schedule = DiffusionSchedule.from_config(**cfg["noise_scheduler_kwargs"])
+    models = build_models(cfg)
+    gen = torch.Generator().manual_seed(0)
+    for m in models.values():
+        init_random_(m, gen)
+        m.cuda()
+    trainable = {**partition_params(models["unet"], stage2_cmc_unet_trainable, "unet."),
+                 **partition_params(models["pose_encoder"], lambda n: True, "pose_encoder.")}
+    for name in ("vae", "text"):
+        partition_params(models[name], lambda n: False)
+    grads_fn = make_cam_grads_fn(models["unet"], models["pose_encoder"], models["vae"],
+                                 models["text"], schedule, scfg, sp=mesh.axis("sp"))
+    state = init_train_state(trainable, make_optimizer(COMPOSE_LR))
+    tok, batches, out = HashTokenizer(), synthetic_batches(3, b=2), {}
+    part = shard(2, mesh.axis("data"), "samples")
+    for step in range(2):
+        whole = host_batch(next(batches), tok, "cpu")
+        draws = draw_cam(torch.Generator().manual_seed(100 + step), whole, scfg, schedule)
+        batch = {k: v if k == "null_ids" else v[part] for k, v in whole.items()}
+        grads, metrics = average_over(*grads_fn(state.trainable, {k: v.cuda() for k, v in
+                                                                   batch.items()},
+                                                draws.part(part, 2).to("cuda")),
+                                      mesh.world_group)
+        if step == 0:
+            out["loss"] = float(metrics["loss"])
+            out["grads"] = {n: g.detach().cpu() for n, g in grads.items()}
+        apply_grads(state, grads)
+    out["params"] = {n: p.detach().cpu() for n, p in state.trainable.items()}
+    return out
+
+
+def _mesh_train(mesh: dict, seed: int, steps: int = MESH_STEPS, stop_at=None,
+                trace: bool = False, tiny: bool = False) -> dict:
+    """train("cam", configs/cam.yaml) at full width (``tiny``: phase 5's
+    tiny widths in fp32) on the mesh ``mesh`` and synthetic batches of
+    ``seed``: per step the trainable checksum, the launches and the bytes the
+    collectives sent; the losses, the seconds, the peak; with ``trace`` the
+    collectives of the last step traced."""
+    import shutil
+    import signal
+    import tempfile
+
+    import yaml
+
+    from synfmc_tpu_torch.parallel import collectives
+    from synfmc_tpu_torch.parallel.mesh import rank
+    from synfmc_tpu_torch.training.trainers import checksum, train
+
+    from torch.profiler import ProfilerActivity, profile
+
+    kernels, per_step, traced = counters(), [], {}
+
+    def on_step(state, metrics, draws):
+        if trace and state.step == steps - 1:
+            torch.cuda.synchronize()
+            traced["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            traced["prof"].start()
+        elif trace and state.step == steps:
+            torch.cuda.synchronize()
+            traced["prof"].stop()
+        per_step.append({"launches": {k: fn.launches for k, fn in kernels.items()},
+                         "checksum": checksum(state.trainable.values()),
+                         "bytes": sum(collectives.BYTES.values()),
+                         "host_s": sum(collectives.SECONDS.values())})
+        for fn in kernels.values():
+            fn.launches = 0
+        collectives.reset_counters()
+        if stop_at is not None and (rank(), state.step) == (1, stop_at):
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    if tiny:
+        cfg = dict(tiny_config(mixed_precision=False))
+    else:
+        with open(CAM_YAML) as fh:
+            cfg = yaml.safe_load(fh)
+    if mesh:
+        cfg["mesh"] = mesh
+    cfg["output_dir"] = tempfile.mkdtemp(prefix="synfmc_mesh_train_")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    collectives.reset_counters()
+    for fn in kernels.values():
+        fn.launches = 0
+    try:
+        out = train("cam", cfg, synthetic_batches(seed), steps, seed=0, on_step=on_step)
+    finally:
+        shutil.rmtree(cfg["output_dir"], ignore_errors=True)
+    return {"losses": out["losses"], "steps": out["steps"], "preempted": out.get("preempted"),
+            "per_step": per_step, "step_s": out["step_s"],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "trace": _collective_ms(traced["prof"]) if trace else None}
+
+
+def _collective_trace(fn) -> dict:
+    """``_collective_ms`` over one call of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return _collective_ms(prof)
+
+
+def _collective_ms(prof) -> dict:
+    """Calls and device ms (the kernels and copies launched inside) of the
+    collectives' ``synfmc::*`` ranges in a torch.profiler trace."""
+    out = {}
+    for e in prof.key_averages():
+        if e.key.startswith("synfmc::"):
+            out[e.key[len("synfmc::"):]] = {
+                "calls": e.count, "device_ms": getattr(e, "device_time_total", 0.0) / 1e3}
+    return out
+
+
+def mesh_child(group: str, root: str) -> int:
+    """A rank of ``python -m torch.distributed.run ... chip_smoke.py
+    --mesh-child GROUP ROOT``: runs the group's cases and writes this rank's
+    results to ROOT/GROUP.rankN.pt."""
+    import torch.distributed as dist
+
+    from synfmc_tpu_torch.parallel.mesh import init_distributed, rank, world_size
+
+    if group == "nccl":
+        init_distributed()  # NCCL on cuda:LOCAL_RANK
+    else:
+        init_distributed(backend="gloo", device="cuda:0")  # ranks share the one card
+    res = {"device": torch.cuda.get_device_name(0), "world": world_size()}
+    torch.backends.cuda.matmul.allow_tf32 = False  # as the parent runs after phase 3
+    torch.backends.cudnn.allow_tf32 = False
+    if group == "nccl":
+        res["train"] = _mesh_train({"data": 1}, seed=0)  # phase 7's batches
+    elif group == "gloo2":
+        pipe = full_pipe(data_parallel=2, batch=2)
+        prompts = [REQUESTS[0][1], REQUESTS[1][1]]
+        res["dp"] = mesh_request(pipe, prompts, mesh_inputs(pipe, 2))
+        res["dp"]["video"] = res["dp"]["video"][rank()]  # this rank's prompt
+        del pipe
+        torch.cuda.empty_cache()
+        res["train_data"] = _mesh_train({"data": 2}, seed=10 + rank())
+        res["train_sp"] = _mesh_train({"sp": 2}, seed=10, trace=True)
+        torch.cuda.empty_cache()
+        res["tiny_data"] = tiny_train_steps({"data": 2})
+        res["tiny_sp"] = tiny_train_steps({"sp": 2})
+        res["stop"] = _mesh_train({"data": 2}, seed=10 + rank(), steps=6, stop_at=MESH_STOP_AT,
+                                  tiny=True)
+    elif group == "gloo4":
+        pipe = full_pipe(frame_parallel=2, batch=1)
+        res["fp"] = mesh_request(pipe, [REQUESTS[0][1]], mesh_inputs(pipe, 1))
+        res["trace_fp"] = _collective_trace(lambda: mesh_request(
+            pipe, [REQUESTS[0][1]], mesh_inputs(pipe, 1), steps=1, decode=False))
+        if rank():
+            res["fp"]["video"] = None
+        del pipe
+        torch.cuda.empty_cache()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        pipe = tiny_pipe(frame_parallel=2, batch=1)
+        res["tiny"] = {}
+        for label, frames, height, width, objs, kw in MESH_TINY:
+            out = mesh_request(pipe, ["a knight marches across a field"],
+                               mesh_inputs(pipe, 1, frames, height, width), kw, steps=3,
+                               decode=False, frames=frames, height=height, width=width)
+            res["tiny"][label] = out["latents"]
+    else:
+        raise ValueError(f"unknown mesh group {group!r}")
+    torch.save(res, os.path.join(root, f"{group}.rank{rank()}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def _ranks(root: str, group: str, n: int) -> list:
+    return [torch.load(os.path.join(root, f"{group}.rank{r}.pt"), weights_only=False)
+            for r in range(n)]
+
+
+def _per_step_exact(name: str, per_step: list, want: dict) -> None:
+    for i, s in enumerate(per_step):
+        if s["launches"] != want:
+            raise AssertionError(f"{name} step {i + 1}: launches {s['launches']} != {want}")
+
+
+def _mesh_generate(root: str, card: str) -> None:
+    """(a), serving: the command line under torchrun at world size 1 (NCCL)
+    and in this process, request (a)'s shape from a seeded OMC bundle, a pan
+    camera file and seeded objects: frames equal bit for bit."""
+    from synfmc_tpu_torch.scripts import generate
+
+    pipe = full_pipe()
+    omcm = os.path.join(root, "omcm.ckpt")
+    torch.save({"omcm_state_dict": {k: v.cpu() for k, v in pipe.adapter.state_dict().items()}},
+               omcm)
+    del pipe
+    torch.cuda.empty_cache()
+    cam_txt = os.path.join(root, "camera.txt")
+    with open(cam_txt, "w") as fh:
+        fh.write(camera_label_text("pan"))
+    info, masks = objects(400, FRAMES, HEIGHT, WIDTH)
+    obj_npz = os.path.join(root, "objects.npz")
+    np.savez(obj_npz, obj_info=info[0], obj_masks=masks[0])
+    args = ["--config", OBJ_YAML, "--prompt", REQUESTS[0][1], "--omcm-ckpt", omcm,
+            "--allow-untrained-cm", "--camera-txt", cam_txt, "--obj-traj-npz", obj_npz,
+            "--num-inference-steps", str(STEPS), "--video-length", str(FRAMES),
+            "--guidance-scale", str(GUIDANCE), "--seed", "31"]
+    out, wall = torchrun(1, ["-m", "synfmc_tpu_torch.scripts.generate", *args, "--data-parallel",
+                             "1", "--out", os.path.join(root, "a.gif"), "--save-frames",
+                             os.path.join(root, "a.npz")], "generate --data-parallel 1")
+    line = next(x for x in out.splitlines() if x.startswith("# generate:"))
+    generate.main([*args, "--out", os.path.join(root, "b.gif"),
+                   "--save-frames", os.path.join(root, "b.npz")])
+    torch.cuda.empty_cache()
+    a, b = np.load(os.path.join(root, "a.npz")), np.load(os.path.join(root, "b.npz"))
+    if not np.array_equal(a["video"], b["video"]):
+        raise AssertionError(f"(a) generate: torchrun frames differ from in-process by "
+                             f"{np.abs(a['video'] - b['video']).max()}")
+    log(f"  (a) generate --data-parallel 1 under torchrun (NCCL, world 1): {wall:.1f} s; frames "
+        f"{a['video'].shape} equal the in-process run's bit for bit; {line}; {card}")
+
+
+def mesh_phase(card: str, ref_losses=None) -> Counter:
+    """The mesh phase (MESH_HEAD); returns the ranks' launches on the mesh path.
+    ``ref_losses``: phase 7's first MESH_STEPS losses (the same run in this
+    process), else (a) takes its own."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False  # as the children run (mesh_child)
+    torch.backends.cudnn.allow_tf32 = False
+    root = tempfile.mkdtemp(prefix="synfmc_mesh_")
+    launches = Counter()
+    me = os.path.abspath(__file__)
+    children = []
+    try:
+        # (a) NCCL at world size 1 and (c)'s 4 ranks run beside each other and the
+        # generate runs, to keep the script within its time: (c)'s times are
+        # taken with (a)'s processes on the card too; (b), (d), (e) run alone
+        gloo4 = Background(_torchrun_cmd(4, [me, "--mesh-child", "gloo4", root]),
+                           os.path.join(root, "gloo4.log"))
+        nccl = Background(_torchrun_cmd(1, [me, "--mesh-child", "nccl", root]),
+                          os.path.join(root, "nccl.log"))
+        children += [gloo4, nccl]
+        _mesh_generate(root, card)
+        wall = nccl.wait("mesh child nccl")
+        (a,) = _ranks(root, "nccl", 1)
+        if ref_losses is None:
+            ref_losses = _mesh_train({}, seed=0)["losses"]
+            torch.cuda.empty_cache()
+        got = a["train"]
+        if got["losses"] != list(ref_losses):
+            raise AssertionError(f"(a) train: NCCL world-1 losses {got['losses']} vs in-process "
+                                 f"{list(ref_losses)}")
+        _per_step_exact("(a) train", got["per_step"], TRAIN_PER_STEP)
+        for s in got["per_step"]:
+            launches.update(s["launches"])
+        log(f"  (a) train('cam') mesh data=1 under NCCL: {wall:.1f} s with the generate runs; losses "
+            f"{got['losses']} equal the in-process run's bit for bit, launches per step exact")
+        wall4 = gloo4.wait("mesh child gloo4")
+
+        # (b), (d), (e): 2 ranks over gloo on cuda:0
+        _, wall = torchrun(2, [me, "--mesh-child", "gloo2", root], "mesh child gloo2", 900)
+        r2 = _ranks(root, "gloo2", 2)
+        log(f"  2-rank child: {wall:.1f} s")
+        ref_pipe = pipe = full_pipe()  # the single-process runs of (b) and (c)
+        prompts = [REQUESTS[0][1], REQUESTS[1][1]]
+        latents, rays, traj = mesh_inputs(pipe, 2)
+        for r in range(2):
+            one = mesh_request(pipe, [prompts[r]], (latents[r:r + 1], rays[r:r + 1],
+                                                    [t[r:r + 1] for t in traj]))
+            dp = r2[r]["dp"]
+            if not torch.equal(dp["video"], one["video"][0]):
+                raise AssertionError(f"(b) rank {r}: frames differ from the batch-1 run by "
+                                     f"{(dp['video'] - one['video'][0]).abs().max().item()}")
+            want = expected_launches({}, "pan", FRAMES)
+            if dp["launches"] != want:
+                raise AssertionError(f"(b) rank {r}: launches {dp['launches']} != {want}")
+            launches.update(dp["launches"])
+            log(f"  (b) data-parallel rank {r}: frames equal its prompt's batch-1 run bit for "
+                f"bit; {dp['ms_per_step']:.2f} ms/step (batch 1 alone {one['ms_per_step']:.2f}), "
+                f"peak {dp['peak_gib']:.2f} GiB, launches {dp['launches']}, collectives "
+                f"{dp['calls']}, bytes sent {dp['bytes']}, host s in them {dp['host_s']}")
+        for key in ("train_data", "train_sp"):
+            ranks = [x[key] for x in r2]
+            if [s["checksum"] for s in ranks[0]["per_step"]] != \
+                    [s["checksum"] for s in ranks[1]["per_step"]]:
+                raise AssertionError(f"(d) {key}: replica checksums differ")
+            for r, x in enumerate(ranks):
+                _per_step_exact(f"(d) {key} rank {r}", x["per_step"], TRAIN_PER_STEP)
+                for s in x["per_step"]:
+                    launches.update(s["launches"])
+                log(f"  (d) {key} rank {r}: losses {['%.5f' % v for v in x['losses']]}, step "
+                    f"{['%.1f' % (t * 1e3) for t in x['step_s']]} ms, peak "
+                    f"{x['peak_gib']:.2f} GiB, bytes sent a step "
+                    f"{[s['bytes'] for s in x['per_step']]}, host s in the collectives a step "
+                    f"{['%.3f' % s['host_s'] for s in x['per_step']]}, checksums "
+                    f"{[s['checksum'] for s in x['per_step']]} (equal on both ranks)")
+        log(f"  (d) sp=2 train step {MESH_STEPS}, collectives traced (rank 0): "
+            f"{json.dumps(r2[0]['train_sp']['trace'])}")
+        ref = tiny_train_steps({})
+        for key in ("tiny_data", "tiny_sp"):
+            got = r2[0][key]
+            loss_rel = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+            grad_rel = max(kernel_error(got["grads"][n], g)[1] for n, g in ref["grads"].items())
+            param_err = max((got["params"][n] - p).abs().max().item()
+                            for n, p in ref["params"].items())
+            same = all(torch.equal(r2[1][key]["params"][n], p) for n, p in got["params"].items())
+            log(f"  (d) {key} vs one process on the concatenated batch: loss rel "
+                f"{loss_rel:.2e} (1e-5), gradients {grad_rel:.2e} (1e-3), parameters after 2 "
+                f"AdamW steps {param_err:.2e} (2 lr), replicas equal {same}")
+            if not (loss_rel < 1e-5 and grad_rel < 1e-3 and param_err < 2 * COMPOSE_LR and same):
+                raise AssertionError(f"(d) {key}: loss {loss_rel}, grads {grad_rel}, params "
+                                     f"{param_err}, replicas equal {same}")
+        stops = [x["stop"] for x in r2]
+        if [s["steps"] for s in stops] != [MESH_STOP_AT] * 2 or not all(s["preempted"]
+                                                                       for s in stops):
+            raise AssertionError(f"(e) stop: steps {[s['steps'] for s in stops]}, preempted "
+                                 f"{[s['preempted'] for s in stops]}")
+        log(f"  (e) SIGTERM to rank 1 after step {MESH_STOP_AT} (tiny width, data=2): both ranks "
+            f"stopped at step {MESH_STOP_AT}, preempted")
+
+        # (c): 4 ranks, data 2 x sp 2 (run beside (a))
+        r4 = _ranks(root, "gloo4", 4)
+        log(f"  4-rank child (beside (a)'s runs): {wall4:.1f} s")
+        want = expected_launches({}, "pan", FRAMES // 2)
+        for r, x in enumerate(r4):
+            fp = x["fp"]
+            if fp["launches"] != want:
+                raise AssertionError(f"(c) rank {r}: launches {fp['launches']} != {want}")
+            launches.update(fp["launches"])
+            log(f"  (c) frame-parallel rank {r}: {fp['ms_per_step']:.2f} ms/step, peak "
+                f"{fp['peak_gib']:.2f} GiB, launches {fp['launches']}, collectives {fp['calls']}, "
+                f"bytes sent {fp['bytes']}, host s in them {fp['host_s']} over {STEPS} steps "
+                f"and the decode")
+        log(f"  (c) one frame-parallel step, collectives traced (rank 0): "
+            f"{json.dumps(r4[0]['trace_fp'])}")
+        pipe = ref_pipe
+        one = mesh_request(pipe, [REQUESTS[0][1]], mesh_inputs(pipe, 1))
+        fp = r4[0]["fp"]
+        if not (torch.isfinite(fp["latents"]).all() and fp["latents"].shape == one["latents"].shape):
+            raise AssertionError("(c) frame-parallel latents not finite or misshapen")
+        err = (fp["latents"] - one["latents"]).abs().max().item()
+        img = (fp["video"] - one["video"]).abs().max().item()
+        log(f"  (c) request (a) at full width (bf16): latents max abs diff {err:.4e} from the "
+            f"single-process run (max |latent| {one['latents'].abs().max().item():.3f}), frames "
+            f"{img:.4e}; single process {one['ms_per_step']:.2f} ms/step, peak "
+            f"{one['peak_gib']:.2f} GiB; {card}")
+        del pipe, ref_pipe
+        torch.cuda.empty_cache()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        pipe = tiny_pipe()
+        for label, frames, height, width, objs, kw in MESH_TINY:
+            ref = mesh_request(pipe, ["a knight marches across a field"],
+                               mesh_inputs(pipe, 1, frames, height, width), kw, steps=3,
+                               decode=False, frames=frames, height=height, width=width)
+            got = [x["tiny"][label] for x in r4]
+            err = max((g - ref["latents"]).abs().max().item() for g in got)
+            log(f"  (c) tiny fp32 {label}: {frames} frames {height}x{width}, all 4 ranks' latents "
+                f"within {err:.3e} of the single-process run (limit {LATENT_TOL})")
+            if not err < LATENT_TOL:
+                raise AssertionError(f"(c) tiny {label}: latents differ by {err}")
+        del pipe
+        torch.cuda.empty_cache()
+    finally:
+        for child in children:
+            if child.proc.poll() is None:
+                child.proc.kill()
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[mesh] {time.perf_counter() - t_phase:.1f} s; {card}")
     return launches
 
 
@@ -2934,11 +3485,19 @@ def main() -> int:
     sys.path.insert(0, REPO)
     if args[:1] == ["--tools-load"]:
         return tools_load(args[1])
+    if args[:1] == ["--mesh-child"]:
+        return mesh_child(args[1], args[2])
     from synfmc_tpu_torch.data import image
     from synfmc_tpu_torch.ops import _cuda
     from synfmc_tpu_torch.pipelines.factory import build_pipeline, randomize_pipeline_
 
     profile = "--profile" in args
+    t_script = time.perf_counter()
+
+    def header(msg: str) -> None:
+        """A phase's first line, with the script's seconds so far."""
+        log(f"{msg} (at {time.perf_counter() - t_script:.0f} s)")
+
     name = torch.cuda.get_device_name(0)
     card = smi("name,power.limit")
     form, rates = rates_for(name, torch.cuda.get_device_properties(0).multi_processor_count)
@@ -2978,6 +3537,13 @@ def main() -> int:
         log(TOOLS_HEAD)
         tools_alone(card[0] if card else "")
         return 0
+    if "--mesh" in args:
+        log(MESH_HEAD)
+        launches = mesh_phase(card[0] if card else "")
+        log(f"[mesh] launches on the mesh path, all ranks: {dict(launches)}")
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                                 "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     t0 = time.perf_counter()
     # seeded weights with every conditioning path live (no checkpoint files yet); the
@@ -3000,13 +3566,14 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    log("[compose] tiny obj stage, 3 steps, fp32: GPU vs CPU, one OMC request and each mode")
+    header("[compose] tiny obj stage, 3 steps, fp32: GPU vs CPU, one OMC request and each mode")
     compose()
 
-    log("[train-compose] tiny width, 16 frames at 256x384, 2 stage-2 steps, fp32: GPU vs CPU")
+    header(f"[train-compose] tiny width, {FRAMES} frames at {HEIGHT}x{WIDTH}, 2 stage-2 steps, "
+           f"fp32: GPU vs CPU")
     train_compose()
 
-    log(f"[main] {len(REQUESTS)} requests: {FRAMES}-frame windows {HEIGHT}x{WIDTH}, {STEPS} "
+    header(f"[main] {len(REQUESTS)} requests: {FRAMES}-frame windows {HEIGHT}x{WIDTH}, {STEPS} "
         f"steps, guidance {GUIDANCE}, OMC gate {OMCM}")
     launches, per_mode = serve(pipe, card[0] if card else "")
     log(f"[main] per mode: {json.dumps({k: {m: v[m] for m in ('ms_per_step', 'clip_s', 'launches_per_step', 'peak_gib')} for k, v in per_mode.items()})}; "
@@ -3018,13 +3585,13 @@ def main() -> int:
     del pipe
     torch.cuda.empty_cache()
 
-    log(f"[train] train('cam', configs/cam.yaml): batch 1, {FRAMES} frames {HEIGHT}x{WIDTH}, "
+    header(f"[train] train('cam', configs/cam.yaml): batch 1, {FRAMES} frames {HEIGHT}x{WIDTH}, "
         f"bf16 with fp32 masters, {TRAIN_STEPS} AdamW steps")
     tr = train_main(profile)
     launches.update(tr["launches"])
     torch.cuda.empty_cache()
 
-    log("[backward] kernels at the train step's recorded shapes, K6/K7 stand-ins, fp32")
+    header("[backward] kernels at the train step's recorded shapes, K6/K7 stand-ins, fp32")
     fwd_train = {k: Counter({key: n for key, n in tr["seen"][k].items() if key not in seen[k]})
                  for k in ("flash", "temporal", "group_norm")}
     for kind, rows in check_kernels(fwd_train, rates, traced, fp32=False).items():
@@ -3042,12 +3609,12 @@ def main() -> int:
 
     root = tempfile.mkdtemp(prefix="synfmc_train_files_")
     try:
-        log(TRAIN_FILES_HEAD)
+        header(TRAIN_FILES_HEAD)
         w = prepare_train_files(root)
         launches.update(train_files(card[0] if card else "", root, w))
         tools_validate(w["configs"]["a"], card[0] if card else "")
         torch.cuda.empty_cache()
-        log(TRAIN_STAGES_HEAD)
+        header(TRAIN_STAGES_HEAD)
         checked = {(kind, r["key"][1:]) for kind, rows in results.items() for r in rows}
         stage_launches, stage_results = train_stages(card[0] if card else "", root, w, rates,
                                                      traced, checked)
@@ -3058,8 +3625,12 @@ def main() -> int:
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
 
+    header(MESH_HEAD)
+    launches.update(mesh_phase(card[0] if card else "", tr["losses"][:MESH_STEPS]))
+    torch.cuda.empty_cache()
+
     # last, so that its child processes and its 3.5 GB of files touch no earlier measurement
-    log("[entry] the command-line program and the daemon at full width, from reference-layout "
+    header("[entry] the command-line program and the daemon at full width, from reference-layout "
         "files written from the serving phase's weights (the same seed, bf16)")
     pipe = randomize_pipeline_(build_pipeline(OBJ_YAML, stage="obj", seed=0,
                                               allow_untrained_cm=True)[0], 0)
@@ -3067,8 +3638,9 @@ def main() -> int:
     del pipe
     torch.cuda.empty_cache()
 
-    log(TOOLS_HEAD)  # after entry: its child processes and files touch no earlier measurement
+    header(TOOLS_HEAD)  # after entry: its child processes and files touch no earlier measurement
     launches.update(tools_export(card[0] if card else ""))
+    header("[done]")
 
     print(json.dumps({"kernels": summarise(results, launches)}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,7 +1,6 @@
 """Host-side data loading: a persistent pool of worker processes.
 
-The port's copy of synfmc_tpu/data/loader.py at one process
-(``process_count=1``): worker *processes* run the dataset's numpy
+The port's copy of synfmc_tpu/data/loader.py: worker *processes* run the dataset's numpy
 ``__getitem__`` (pure Python and numpy, so threads would serialize on the
 GIL); a bounded result queue applies backpressure and the parent reorders
 batches so iteration order is deterministic.  The epoch's permutation is
@@ -9,6 +8,15 @@ batches so iteration order is deterministic.  The epoch's permutation is
 sample content is a pure function of (dataset seed, epoch, index), so the
 batch sequence equals the JAX loader's and does not depend on the number of
 workers.
+
+Several processes (``process_index`` of ``process_count``: the trainer's
+ranks of the mesh's ``data`` axis) stride-slice the same global
+permutation, as DistributedSampler does, so the shards are disjoint.  Each
+shard is cut to ``len(dataset) // process_count`` examples, so that every
+rank has the same number of batches an epoch: a length the ranks do not
+divide would otherwise give the first ranks one batch more, and the others
+would wait for it at their next collective.  (The JAX package keeps the
+longer shards; this cut is the port's.)
 
 Workers are forked from a parent that has usually initialised CUDA already.
 They must stay numpy-only: ``_forbid_cuda_in_worker`` makes any CUDA use in
@@ -81,8 +89,14 @@ class ShardedLoader:
         seed: int = 0,
         num_workers: int = 4,
         drop_last: bool = True,
+        process_index: int = 0,
+        process_count: int = 1,
     ):
+        if not 0 <= process_index < process_count:
+            raise ValueError(f"process_index {process_index} outside [0, {process_count})")
         self.dataset = dataset
+        self.process_index = process_index
+        self.process_count = process_count
         self.batch_size = batch_size
         self.collate_fn = collate_fn
         self.seed = seed
@@ -102,9 +116,13 @@ class ShardedLoader:
         self.start_batch = start_batch
 
     def _epoch_indices(self, epoch: Optional[int] = None) -> np.ndarray:
+        """The global permutation of the global seed (every rank computes the
+        same one), this rank's stride slice of it, cut to the shortest
+        rank's length."""
         idx = np.arange(len(self.dataset))
         np.random.default_rng((self.seed, self.epoch if epoch is None else epoch)).shuffle(idx)
-        return idx
+        shard = idx[self.process_index::self.process_count]
+        return shard[:len(idx) // self.process_count]
 
     def _epoch_batches(self, epoch: Optional[int] = None) -> list[np.ndarray]:
         indices = self._epoch_indices(epoch)
@@ -138,9 +156,10 @@ class ShardedLoader:
         are terminated rather than asked to finish their jobs."""
         if not self._workers:
             return
-        for w in self._workers:
+        started = [w for w in self._workers if w.pid is not None]
+        for w in started:
             w.terminate()
-        for w in self._workers:
+        for w in started:
             w.join(timeout=5)
         for q in (self._job_q, self._out_q):
             q.cancel_join_thread()

@@ -4,16 +4,24 @@ Video activations are NHWC ``(b, f, h, w, c)``; temporal attention runs on
 ``(b*h*w, f, c)`` token groups.  The permutes to and from that layout are
 real copies here (as in the reference).  Pose conditioning installs the
 qkv merge in the attention blocks listed by ``pose_cond_blocks``.
+
+Frame-parallel (``shard``: the mesh's ``sp`` axis, set through
+``UNet3D.set_frame_shard``): a rank holds ``f/S`` frames, and the two
+permutes become the exchange of ``parallel/collectives.py``, so that the
+rank's rows of token groups carry all ``f`` frames (the temporal encoding
+sees global frame indices).  The pose features arrive whole on every rank:
+their tokens are sliced by the rank's rows, not exchanged.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 from torch import nn
 
 from synfmc_tpu_torch.models.attention import Attention
 from synfmc_tpu_torch.models.layers import FeedForward, GroupNorm, LayerNorm
+from synfmc_tpu_torch.parallel.collectives import frames_to_rows, row_splits, rows_to_frames
 
 
 class TemporalTransformerBlock(nn.Module):
@@ -62,24 +70,36 @@ class TemporalTransformer3D(nn.Module):
             for _ in range(num_transformer_blocks)
         ])
         self.proj_out = nn.Linear(channels, channels)
+        self.shard = None  # the mesh's sp axis when frame-parallel
 
     def forward(self, x, pose_feature=None):
         b, f, h, w, c = x.shape
         residual = x
-        y = self.norm(x.reshape(b * f, h, w, c))
-        y = y.reshape(b, f, h, w, c).permute(0, 2, 3, 1, 4).reshape(b * h * w, f, c)
+        y = self.norm(x.reshape(b * f, h, w, c)).reshape(b, f, h, w, c)
+        shard: Optional[object] = self.shard
+        if shard is None:
+            frames, rows = f, slice(None)
+            y = y.permute(0, 2, 3, 1, 4).reshape(b * h * w, f, c)
+        else:
+            splits = row_splits(b * h * w, shard.size)
+            lo = sum(splits[:shard.index])
+            frames, rows = f * shard.size, slice(lo, lo + splits[shard.index])
+            y = frames_to_rows(y, shard.group, shard.index, splits)
         y = self.proj_in(y)
         pose_tokens = None
         if pose_feature is not None:
-            if tuple(pose_feature.shape[:4]) != (b, f, h, w):
-                raise ValueError(
-                    f"pose feature shape {tuple(pose_feature.shape)} != activation {(b, f, h, w)}")
+            if tuple(pose_feature.shape[:4]) != (b, frames, h, w):
+                raise ValueError(f"pose feature shape {tuple(pose_feature.shape)} != activation "
+                                 f"{(b, frames, h, w)}")
             pc = pose_feature.shape[-1]
-            pose_tokens = pose_feature.permute(0, 2, 3, 1, 4).reshape(b * h * w, f, pc)
+            pose_tokens = pose_feature.permute(0, 2, 3, 1, 4).reshape(b * h * w, frames, pc)[rows]
         for blk in self.transformer_blocks:
             y = blk(y, pose_feature=pose_tokens)
         y = self.proj_out(y)
-        y = y.reshape(b, h, w, f, c).permute(0, 3, 1, 2, 4)
+        if shard is None:
+            y = y.reshape(b, h, w, f, c).permute(0, 3, 1, 2, 4)
+        else:
+            y = rows_to_frames(y, shard.group, shard.index, splits, (b, f, h, w, c))
         return y + residual
 
 

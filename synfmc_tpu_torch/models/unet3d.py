@@ -5,16 +5,24 @@ SD1.5 constants: 4 latent channels, 2 layers per block, GroupNorm(32).
 Quirk preserved: the plain 4th down block never receives traj features.  The decoder's motion modules take the pose features
 too.  ``conv_norm_out`` uses eps 1e-5; resnet, transformer and motion GNs
 use 1e-6.  Video layout (B, F, H, W, C).
+
+Frame-parallel: ``set_frame_shard(axis)`` hands the mesh's ``sp`` axis to
+the motion modules and nothing else (GroupNorm, convs and spatial attention
+work frame by frame, so a rank's frames need no collective there); the
+sample, traj features and skips then hold the rank's frames, the pose
+features all frames.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Sequence
 
 import torch
 from torch import nn
 
 from synfmc_tpu_torch.models.layers import GroupNorm, TimestepEmbedding, conv3x3, timestep_embedding
+from synfmc_tpu_torch.models.motion_module import TemporalTransformer3D
 from synfmc_tpu_torch.models.unet_blocks import (
     CrossAttnDownBlock3D,
     CrossAttnUpBlock3D,
@@ -117,6 +125,29 @@ class UNet3D(nn.Module):
     @property
     def dtype(self) -> torch.dtype:
         return self.conv_in.weight.dtype
+
+    def set_frame_shard(self, axis) -> None:
+        """Run frame-parallel over ``axis`` (a ``parallel.mesh.Axis``; None
+        or a line of one: on whole clips)."""
+        axis = axis if axis is not None and axis.size > 1 else None
+        for m in self.modules():
+            if isinstance(m, TemporalTransformer3D):
+                m.shard = axis
+
+    @property
+    def frame_shard(self):
+        return next((m.shard for m in self.modules() if isinstance(m, TemporalTransformer3D)),
+                    None)
+
+    @contextlib.contextmanager
+    def frame_shard_as(self, axis):
+        """``set_frame_shard(axis)`` for the block, the previous axis after."""
+        before = self.frame_shard
+        self.set_frame_shard(axis)
+        try:
+            yield self
+        finally:
+            self.set_frame_shard(before)
 
     def forward(self, sample, timesteps, encoder_hidden_states,
                 pose_features: Optional[Sequence[torch.Tensor]] = None,

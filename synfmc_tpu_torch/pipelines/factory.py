@@ -33,6 +33,7 @@ from synfmc_tpu_torch.models.clip_text import CLIPTextModel
 from synfmc_tpu_torch.models.pose_encoder import CameraPoseEncoder
 from synfmc_tpu_torch.models.unet3d import UNet3D, unet_config_from_yaml
 from synfmc_tpu_torch.models.vae import AutoencoderKL
+from synfmc_tpu_torch.parallel.mesh import serving_mesh
 from synfmc_tpu_torch.pipelines.animation import AnimationPipeline
 from synfmc_tpu_torch.training.checkpoint import load_into_module, torch_load_state_dict
 from synfmc_tpu_torch.training.pretrained import load_pretrained, validate_pretrained_paths
@@ -195,16 +196,24 @@ def build_pipeline(config, *, stage: Optional[str] = None, seed: int = 42,
     ``lora_ckpt`` and ``cm_ckpt`` override the config's ``lora_ckpt`` and
     ``pretrained_cm_path``; the obj stage needs a CMC file unless
     ``allow_untrained_cm``.  ``seed`` makes the weights no file covers.
-    ``video_length`` and ``batch`` are the JAX package's keywords: its
-    parameter init and mesh take shapes from them, the port's modules take
-    any.  ``data_parallel`` / ``frame_parallel`` (the mesh) raise.
-    ``device`` defaults to ``cuda`` (raises without a GPU); ``dtype`` to
-    bf16 when the config sets ``mixed_precision_training`` (the default),
-    else fp32."""
-    if data_parallel or frame_parallel:
-        raise NotImplementedError(
-            "data_parallel / frame_parallel: the multi-device mesh is not ported "
-            "(ROADMAP.md, Queue 1 item 5)")
+    ``video_length`` is the JAX package's keyword (its parameter init takes
+    shapes from it; the port's modules take any).  The mesh, as
+    synfmc_tpu/pipelines/factory.py builds it: ``frame_parallel`` S > 0
+    makes a ``data`` = 2 x ``batch`` by ``sp`` = S serving mesh (the CFG pair
+    rides ``data``), else ``data_parallel`` N > 0 a ``data`` = N one; it
+    needs a process group of exactly that many ranks (``parallel.mesh.
+    init_distributed`` under ``python -m torch.distributed.run``) and raises
+    otherwise.  ``device`` defaults to ``cuda`` (raises without a GPU;
+    under a process group the rank's device); ``dtype`` to bf16 when the
+    config sets ``mixed_precision_training`` (the default), else fp32."""
+    mesh = None
+    if frame_parallel:
+        if data_parallel not in (0, 2 * batch):
+            raise ValueError(f"frame_parallel puts the CFG pair on the data axis: data_parallel "
+                             f"must be 0 or 2 * batch = {2 * batch}, got {data_parallel}")
+        mesh = serving_mesh(2 * batch, frame_parallel)
+    elif data_parallel:
+        mesh = serving_mesh(data_parallel)
     config = dict(load_config(config))
     if lora_ckpt:
         config["lora_ckpt"] = lora_ckpt
@@ -233,7 +242,7 @@ def build_pipeline(config, *, stage: Optional[str] = None, seed: int = 42,
     pipe = AnimationPipeline(
         unet=models["unet"], vae=models["vae"], text_encoder=models["text"],
         tokenizer=tokenizer, schedule=schedule, pose_encoder=models.get("pose_encoder"),
-        adapter=models.get("adapter"), device=dev,
+        adapter=models.get("adapter"), device=dev, mesh=mesh,
     )
     sample_size = tuple((config.get("train_data") or {}).get("params", {})
                         .get("sample_size", (256, 384)))

@@ -10,6 +10,15 @@ The port of scripts/generate.py, on the GPU unless ``--cpu`` is given:
 The config's checkpoint paths (``pretrained_model_path``: an SD1.5
 diffusers directory; ``motion_module_ckpt``; ``lora_ckpt``;
 ``pretrained_cm_path``) load as ``pipelines.factory.build_pipeline`` says.
+On N GPUs, one process each (``--frame-parallel S`` needs 2 x prompts x S
+ranks, the CFG pair on the data axis):
+
+    python -m torch.distributed.run --nproc-per-node N \\
+        -m synfmc_tpu_torch.scripts.generate ... --data-parallel N
+
+Every rank builds the same pipeline, runs its share and holds the whole
+result; rank 0 alone writes the GIF and the ``--save-frames`` file.
+
 The initial latents come from ``torch.Generator(device).manual_seed(seed)``.
 One line, ``# generate: ...``, gives the seconds spent loading, denoising,
 decoding and encoding the GIF, the peak device memory and the kernel
@@ -51,9 +60,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--allow-untrained-cm", action="store_true",
                    help="bypass the stage-3 trained-CMC requirement (smoke tests only)")
     p.add_argument("--data-parallel", type=int, default=0, metavar="N",
-                   help="not ported (the multi-device mesh): any N > 0 raises")
+                   help="split the prompts over N ranks (under torch.distributed.run)")
     p.add_argument("--frame-parallel", type=int, default=0, metavar="S",
-                   help="not ported (the multi-device mesh): any S > 0 raises")
+                   help="split the frames over S ranks, the CFG pair over 2 x prompts "
+                        "(under torch.distributed.run)")
     p.add_argument("--deepcache", type=int, default=1, metavar="N",
                    help="DeepCache interval: deep UNet levels refresh every Nth step")
     p.add_argument("--cfg-cache", type=int, default=1, metavar="N",
@@ -68,6 +78,11 @@ def parse_args(argv=None) -> argparse.Namespace:
         args.deepcache = args.cfg_cache = args.turbo
     if args.obj_traj_npz and not args.omcm_ckpt:
         p.error("--obj-traj-npz requires --omcm-ckpt")
+    launched = "RANK" in os.environ and "WORLD_SIZE" in os.environ
+    if (args.data_parallel > 1 or args.frame_parallel) and not launched:
+        p.error("--data-parallel N > 1 and --frame-parallel run one process a GPU: launch "
+                "python -m torch.distributed.run --nproc-per-node <ranks> -m "
+                "synfmc_tpu_torch.scripts.generate ...")
     return args
 
 
@@ -110,14 +125,29 @@ def _sync(dev: torch.device) -> None:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
+    import torch.distributed as dist
+
+    from synfmc_tpu_torch.parallel import mesh as pmesh
+
+    t0 = time.perf_counter()
+    if (args.data_parallel or args.frame_parallel) and "RANK" in os.environ:
+        pmesh.init_distributed(device="cpu" if args.cpu else None)
+    try:
+        return _run(args, t0)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run(args, t0: float) -> int:
     from synfmc_tpu_torch.config import load_config
     from synfmc_tpu_torch.evaluation.metrics import parse_camera_txt
     from synfmc_tpu_torch.ops import kernel_launches
+    from synfmc_tpu_torch.parallel import mesh as pmesh
     from synfmc_tpu_torch.pipelines.animation import decode_latents
     from synfmc_tpu_torch.pipelines.factory import build_pipeline
     from synfmc_tpu_torch.utils.video import videos_grid_gif
 
-    t0 = time.perf_counter()
     config = load_config(args.config)
     pipe, info = build_pipeline(
         config, seed=args.seed, video_length=args.video_length, lora_ckpt=args.lora_ckpt,
@@ -150,25 +180,29 @@ def main(argv=None) -> int:
     t_denoise = time.perf_counter() - t0
     t0 = time.perf_counter()
     with torch.inference_mode():
-        video = decode_latents(pipe.vae, latents, decode_chunk=args.decode_chunk)
+        video = decode_latents(pipe.vae, latents, decode_chunk=args.decode_chunk, mesh=pipe.mesh)
     video = video.float().cpu().numpy()
     t_decode = time.perf_counter() - t0
     launches = {k: v - launches0[k] for k, v in kernel_launches().items()}
     peak = torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else 0.0
 
-    t0 = time.perf_counter()
-    data = videos_grid_gif(video)
-    t_gif = time.perf_counter() - t0
-    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
-    with open(args.out, "wb") as fh:
-        fh.write(data)
-    if args.save_frames:
-        np.savez(args.save_frames, video=video, input_ids=pipe.tokenizer(args.prompt))
-    print(f"# generate: device {dev}, load {t_load:.3f} s, denoise {t_denoise:.3f} s "
-          f"({args.num_inference_steps} steps), decode {t_decode:.3f} s, gif "
-          f"{t_gif * 1e3:.1f} ms ({len(data)} bytes), peak {peak:.2f} GiB, "
-          f"launches {launches}", flush=True)
-    print(f"wrote {args.out}", flush=True)
+    where = f"rank {pmesh.rank()}/{pmesh.world_size()}, " if pmesh.world_size() > 1 else ""
+    gif = ""
+    if pmesh.is_main_process():
+        t0 = time.perf_counter()
+        data = videos_grid_gif(video)
+        t_gif = time.perf_counter() - t0
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "wb") as fh:
+            fh.write(data)
+        if args.save_frames:
+            np.savez(args.save_frames, video=video, input_ids=pipe.tokenizer(args.prompt))
+        gif = f", gif {t_gif * 1e3:.1f} ms ({len(data)} bytes)"
+    print(f"# generate: {where}device {dev}, load {t_load:.3f} s, denoise {t_denoise:.3f} s "
+          f"({args.num_inference_steps} steps), decode {t_decode:.3f} s{gif}, peak "
+          f"{peak:.2f} GiB, launches {launches}", flush=True)
+    if pmesh.is_main_process():
+        print(f"wrote {args.out}", flush=True)
     return 0
 
 

@@ -3,10 +3,16 @@
     python -m synfmc_tpu_torch.scripts.train --stage {lora,cam,obj} --config configs/<stage>.yaml \\
         [--max-steps N] [--device cpu]
 
+    python -m torch.distributed.run --nproc-per-node N -m synfmc_tpu_torch.scripts.train \\
+        --distributed --stage cam --config C   # the config's mesh: {data, sp}, data x sp = N
+
 Runs ``training.trainers.train`` for the stage (1: image LoRA, 2: CMC, 3:
 OMC) on the GPU unless ``--device cpu`` is given and prints the metrics dict
 on its last line (with ``'preempted': True`` after a SIGTERM or SIGINT, which
-stops the run cleanly after a final checkpoint).
+stops the run cleanly after a final checkpoint).  ``--distributed`` (the JAX
+flag) joins the process group of ``torch.distributed.run`` first: one
+process a GPU, NCCL (gloo with ``--device cpu``).  A config whose mesh is
+larger than 1 raises without it.
 """
 
 from __future__ import annotations
@@ -21,14 +27,26 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--max-steps", type=int, default=None, help="override max_train_steps")
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; 'cpu' runs the plain versions)")
+    p.add_argument("--distributed", action="store_true",
+                   help="join the process group of python -m torch.distributed.run")
     return p.parse_args(argv)
 
 
 def main(argv=None) -> None:
     args = parse_args(argv)
+    import torch.distributed as dist
+
     from synfmc_tpu_torch.training.trainers import train
 
-    metrics = train(args.stage, args.config, max_steps=args.max_steps, device=args.device)
+    if args.distributed:
+        from synfmc_tpu_torch.parallel.mesh import init_distributed
+
+        init_distributed(device=args.device)  # None: cuda:LOCAL_RANK
+    try:
+        metrics = train(args.stage, args.config, max_steps=args.max_steps, device=args.device)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
     print({k: v for k, v in metrics.items()}, flush=True)
 
 

@@ -12,6 +12,10 @@ The counterpart of synfmc_tpu/training/checkpoint.py.
   files.  A step directory is written under a temporary name and renamed
   into place, so that ``latest_native`` never finds a partial one.
   ``latest_native`` and ``find_auto_resume`` are the JAX package's (:91-134).
+  On a mesh rank 0 alone writes (``save_native`` raises elsewhere; every
+  rank holds the whole state, ``mesh.fsdp`` = 1), every rank reads the same
+  file, and the trainer puts a barrier after a write that a later step or
+  run could read.
 - **Reference bundles**, state dicts by reference name on the CPU, the
   ``optimizer_state_dict`` in ``torch.optim.AdamW`` form with its parameters
   in the reference's positional order (``export_adamw_state_dict``, from
@@ -35,6 +39,7 @@ import shutil
 from typing import Mapping, Optional
 
 import torch
+import torch.distributed as dist
 
 # Checkpoint keys with no parameter behind them (synfmc_tpu/interop/
 # torch_port.py:185): AnimateDiff's temporal PE table, BatchNorm counters and
@@ -89,7 +94,11 @@ NATIVE_FILE = "state.pt"
 
 def save_native(ckpt_dir: str, step: int, state: dict) -> str:
     """Write ``state`` (tensors on the CPU, ints, dicts) as
-    ``ckpt_dir/step-{step}/state.pt``; returns the step directory."""
+    ``ckpt_dir/step-{step}/state.pt``; returns the step directory.  Rank 0
+    of a process group alone writes."""
+    if dist.is_initialized() and dist.get_rank() != 0:
+        raise RuntimeError(f"rank {dist.get_rank()}: the resumable state is written by rank 0 "
+                           f"alone")
     path = os.path.join(os.path.abspath(ckpt_dir), f"step-{step}")
     tmp = f"{path}.tmp-{os.getpid()}"
     shutil.rmtree(tmp, ignore_errors=True)

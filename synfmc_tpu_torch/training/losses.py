@@ -39,11 +39,15 @@ def masked_diffusion_loss(pred, target, obj_union_mask: Optional[torch.Tensor],
     return loss, {"sd_loss": sd_loss, "mask_loss": mask_loss}
 
 
-def appearance_debias_loss(pred, target, anchor_frames: torch.Tensor) -> torch.Tensor:
+def appearance_debias_loss(pred, target, anchor_frames: torch.Tensor,
+                           anchor_source: Optional[torch.Tensor] = None) -> torch.Tensor:
     """MSE of sqrt(2)*pred - anchor against sqrt(2)*target - anchor, the anchor
-    being frame ``anchor_frames[b]`` of each sample's target (B,)."""
+    being frame ``anchor_frames[b]`` of each sample's target (B,).  A
+    frame-parallel rank passes its frames as pred / target and the whole
+    clip's target as ``anchor_source``: the anchor index is global."""
+    source = target if anchor_source is None else anchor_source
     b = target.shape[0]
     idx = anchor_frames.to(target.device).long()
-    anchor = target[torch.arange(b, device=target.device), idx][:, None]
+    anchor = source[torch.arange(b, device=target.device), idx][:, None]
     s2 = math.sqrt(2.0)
     return mse(s2 * pred - anchor, s2 * target - anchor)

@@ -32,6 +32,20 @@ random numbers, so no RNG state is kept for it.
 draws, one at a time (one micro-batch's activations alive), sums their
 gradients in fp32, and applies the mean in one clip + AdamW update.
 
+On a mesh (one process a rank; ``parallel/mesh.py``):
+- every rank draws the GLOBAL batch's draws from the step's seed and takes
+  its part (:func:`draw_part`), so that a 2-rank step equals a 1-process
+  step on the concatenated batch with the same draws;
+- ``data``: each rank's loss is its samples' mean;
+- ``sp`` (the grads functions' ``sp`` axis): the UNet runs frame-parallel
+  (its motion modules exchange over ``sp``), each rank encodes, noises and
+  scores its f/S frames, the pose encoder runs on the whole clip on every
+  rank (its gradients then sum right over the ranks) and the appearance
+  anchor, a global frame index, is read from the step's whole noise draw;
+- the gradients (summed over the micro-batches) and the metrics are averaged
+  over every rank once an optimizer step, in fp32 and before the clip, whose
+  norm is then global (``group`` of the step functions).
+
 Mixed precision: the model holds the trainable tensors in its working type
 (bf16) and :class:`TrainState` keeps fp32 masters that the optimizer
 updates and copies back.  Gradients are taken on the bf16 copies and cast
@@ -55,6 +69,8 @@ from torch.utils.checkpoint import (
 
 from synfmc_tpu_torch.diffusion.scheduler import DiffusionSchedule
 from synfmc_tpu_torch.geometry.plucker import plucker_embedding
+from synfmc_tpu_torch.parallel.collectives import all_reduce_
+from synfmc_tpu_torch.parallel.mesh import shard
 from synfmc_tpu_torch.training.losses import appearance_debias_loss, masked_diffusion_loss, mse
 from synfmc_tpu_torch.utils.traj_features import build_adapter_inputs
 
@@ -82,6 +98,16 @@ class StepConfig:
 class _Draws:
     def to(self, device):
         return type(self)(**{f.name: getattr(self, f.name).to(device)
+                             for f in dataclasses.fields(self)})
+
+    def part(self, part: slice, batch: int):
+        """The draws of samples ``part`` of a ``batch``: a whole-batch draw
+        (a scalar) as it is, a per-sample or per-frame one sliced."""
+        def take(t):
+            if t.dim() == 0:
+                return t
+            return t.reshape(batch, -1, *t.shape[1:])[part].flatten(0, 1)
+        return type(self)(**{f.name: take(getattr(self, f.name))
                              for f in dataclasses.fields(self)})
 
 
@@ -176,6 +202,17 @@ def draw_cam(generator: torch.Generator, batch: dict, cfg: StepConfig,
     )
 
 
+def draw_part(draw: Callable, generator: torch.Generator, batch: dict, cfg: StepConfig,
+              schedule: DiffusionSchedule, data=None):
+    """``draw``'s record for the global batch (this rank's batch times the
+    ``data`` axis), this rank's part of it; without ``data`` the batch's."""
+    if data is None or data.size == 1:
+        return draw(generator, batch, cfg, schedule)
+    b, n = batch["pixel_values"].shape[0], data.size * batch["pixel_values"].shape[0]
+    whole = {"pixel_values": torch.empty((n, *batch["pixel_values"].shape[1:]), device="meta")}
+    return draw(generator, whole, cfg, schedule).part(shard(n, data, "samples"), n)
+
+
 def rt_to_c2w(rt: torch.Tensor) -> torch.Tensor:
     """(B, F, 12) relative camera rows -> homogeneous (B, F, 4, 4)."""
     b, f = rt.shape[:2]
@@ -233,22 +270,32 @@ def maybe_remat(fn: Callable, cfg: StepConfig) -> Callable:
     return remat
 
 
-def _conditions(vae, text_encoder, schedule, batch, draws, cfg, timesteps=None):
+def _conditions(vae, text_encoder, schedule, batch, draws, cfg, frames: slice = slice(None)):
     """The frozen part of a stage-2/3 step, without gradients: (noise, t,
-    noisy latents, text context, Plücker rays)."""
+    noisy latents, text context, Plücker rays), the noise and latents of
+    ``frames`` alone, the rays of the whole clip."""
     with torch.no_grad():
         ids = _select_text(batch, draws, cfg)
         rt = batch["camera_rt"]
         if cfg.cfg_random_null_text_ratio > 0:  # camera CFG dropout -> zeros
             rt = rt * (1.0 - draws.camera_drop[:, None, None].to(rt.dtype))
-        latents = encode_latents(vae, batch["pixel_values"], draws.vae_eps)
-        noise = draws.noise.to(latents.dtype)
+        pixels = batch["pixel_values"]
+        b, f = pixels.shape[:2]
+        eps = draws.vae_eps.reshape(b, f, *draws.vae_eps.shape[1:])[:, frames].flatten(0, 1)
+        latents = encode_latents(vae, pixels[:, frames], eps)
+        noise = draws.noise[:, frames].to(latents.dtype)
         t = draws.timesteps
         noisy = schedule.add_noise(latents, noise, t)
         context = text_encoder(ids)
         plucker = plucker_embedding(batch["intrinsics"], rt_to_c2w(rt), cfg.sample_height,
                                     cfg.sample_width, flip_flag=batch.get("flip_flag"))
     return noise, t, noisy, context, plucker
+
+
+def _debias(pred, noise, draws):
+    """The appearance-debias term; the anchor frame from the whole draw."""
+    return appearance_debias_loss(pred, noise, draws.anchor,
+                                  anchor_source=draws.noise.to(noise.dtype))
 
 
 def _backward(trainable: dict, loss: torch.Tensor, metrics: dict):
@@ -288,7 +335,7 @@ def make_lora_grads_fn(unet, vae, text_encoder, schedule: DiffusionSchedule,
 
 
 def make_cam_grads_fn(unet, pose_encoder, vae, text_encoder, schedule: DiffusionSchedule,
-                      cfg: StepConfig = StepConfig(apply_masked_loss=True)) -> Callable:
+                      cfg: StepConfig = StepConfig(apply_masked_loss=True), sp=None) -> Callable:
     """Stage 2 (CMC): ``grads_fn(trainable, batch, draws) -> (grads, metrics)``.
 
     ``trainable`` maps names to the model tensors that train (the others have
@@ -296,20 +343,25 @@ def make_cam_grads_fn(unet, pose_encoder, vae, text_encoder, schedule: Diffusion
     gradients, in the tensors' own type.  batch: pixel_values (B, F, H, W, 3),
     input_ids / background_ids (B, 77), null_ids (77,), camera_rt (B, F, 12),
     intrinsics (B, F, 4), obj_union_mask (B, F, H, W, 1), optional flip_flag (B,).
+    ``sp`` (the mesh's sp axis): frame-parallel (module docstring); it sets
+    the UNet's frame shard.
     """
     unet_call = maybe_remat(unet, cfg)
+    unet.set_frame_shard(sp)
 
     def grads_fn(trainable: dict, batch: dict, draws: CamDraws):
+        frames = shard(batch["pixel_values"].shape[1], sp, "frames")
         noise, t, noisy, context, plucker = _conditions(vae, text_encoder, schedule, batch,
-                                                        draws, cfg)
+                                                        draws, cfg, frames)
         _clear(trainable)
         pose_feats = pose_encoder(plucker)
         pred = unet_call(noisy, t, context, pose_features=pose_feats)
+        mask = batch.get("obj_union_mask") if cfg.apply_masked_loss else None
         loss, metrics = masked_diffusion_loss(
-            pred, noise, batch.get("obj_union_mask") if cfg.apply_masked_loss else None,
+            pred, noise, None if mask is None else mask[:, frames],
             cfg.invert_loss_mask, cfg.mask_loss_weight, cfg.sd_loss_weight)
         if cfg.appearance_debias > 0:
-            loss = loss + cfg.appearance_debias * appearance_debias_loss(pred, noise, draws.anchor)
+            loss = loss + cfg.appearance_debias * _debias(pred, noise, draws)
         return _backward(trainable, loss, metrics)
 
     return grads_fn
@@ -319,25 +371,30 @@ OBJ_STEP_CONFIG = StepConfig(apply_masked_loss=True, invert_loss_mask=False, sd_
 
 
 def make_obj_grads_fn(unet, pose_encoder, adapter, vae, text_encoder,
-                      schedule: DiffusionSchedule, cfg: StepConfig = OBJ_STEP_CONFIG) -> Callable:
+                      schedule: DiffusionSchedule, cfg: StepConfig = OBJ_STEP_CONFIG,
+                      sp=None) -> Callable:
     """Stage 3 (OMC): ``grads_fn(trainable, batch, draws) -> (grads, metrics)``.
 
     batch adds obj_info (B, F, O, 12) and obj_masks (B, F, O, H, W) to
     stage 2's.  The raster (pose x mask, the mask, whole-sample dropout,
     re-masked) goes through the ObjectAdapter into the UNet's traj features;
     the loss mask is the union of the object masks.  A pose encoder with no
-    trainable tensor runs without gradients."""
+    trainable tensor runs without gradients.  ``sp``: as stage 2's; the
+    adapter runs on the rank's frames."""
     unet_call = maybe_remat(unet, cfg)
+    unet.set_frame_shard(sp)
 
     def grads_fn(trainable: dict, batch: dict, draws: ObjDraws):
+        frames = shard(batch["pixel_values"].shape[1], sp, "frames")
         noise, t, noisy, context, plucker = _conditions(vae, text_encoder, schedule, batch,
-                                                        draws, cfg)
-        b, f = batch["obj_info"].shape[:2]
+                                                        draws, cfg, frames)
+        info, obj_masks = batch["obj_info"][:, frames], batch["obj_masks"][:, frames]
+        b, f = info.shape[:2]
         with torch.no_grad():
-            feats, mask = build_adapter_inputs(batch["obj_info"], batch["obj_masks"],
+            feats, mask = build_adapter_inputs(info, obj_masks,
                                                cfg_dropout_ratio=cfg.cfg_random_null_om_ratio,
                                                uniforms=draws.om_uniform)
-            union = (batch["obj_masks"].amax(dim=2) > 0).float()[..., None]
+            union = (obj_masks.amax(dim=2) > 0).float()[..., None]
         _clear(trainable)
         with torch.set_grad_enabled(any(p.requires_grad for p in pose_encoder.parameters())):
             pose_feats = pose_encoder(plucker)
@@ -347,7 +404,7 @@ def make_obj_grads_fn(unet, pose_encoder, adapter, vae, text_encoder,
             pred, noise, union if cfg.apply_masked_loss else None,
             cfg.invert_loss_mask, cfg.mask_loss_weight, cfg.sd_loss_weight)
         if cfg.appearance_debias > 0:
-            loss = loss + cfg.appearance_debias * appearance_debias_loss(pred, noise, draws.anchor)
+            loss = loss + cfg.appearance_debias * _debias(pred, noise, draws)
         return _backward(trainable, loss, metrics)
 
     return grads_fn
@@ -386,17 +443,29 @@ def apply_grads(state: TrainState, grads: dict) -> TrainState:
     return state
 
 
-def step_from_grads(grads_fn: Callable) -> Callable:
-    """grads_fn -> ``step_fn(state, batch, draws) -> (state, metrics)``."""
+def average_over(grads: dict, metrics: dict, group) -> tuple[dict, dict]:
+    """Gradients and metrics averaged over ``group`` in fp32 (one
+    collective); as they are without a group (or a group of one)."""
+    if group is None:
+        return grads, metrics
+    grads = {n: g.float() for n, g in grads.items()}
+    metrics = {k: v.float() for k, v in metrics.items()}
+    all_reduce_(list(grads.values()) + list(metrics.values()), group)
+    return grads, metrics
+
+
+def step_from_grads(grads_fn: Callable, group=None) -> Callable:
+    """grads_fn -> ``step_fn(state, batch, draws) -> (state, metrics)``;
+    ``group``: the ranks the gradients average over (module docstring)."""
 
     def step_fn(state: TrainState, batch: dict, draws):
-        grads, metrics = grads_fn(state.trainable, batch, draws)
+        grads, metrics = average_over(*grads_fn(state.trainable, batch, draws), group)
         return apply_grads(state, grads), metrics
 
     return step_fn
 
 
-def make_accumulating_step(grads_fn: Callable, accum_steps: int) -> Callable:
+def make_accumulating_step(grads_fn: Callable, accum_steps: int, group=None) -> Callable:
     """Real gradient accumulation (synfmc_tpu/training/steps.py:133-174):
     ``step_fn(state, batches, draws) -> (state, metrics)`` over ``accum_steps``
     micro-batches and their draws.  Micro-batches run one at a time, so one
@@ -425,6 +494,7 @@ def make_accumulating_step(grads_fn: Callable, accum_steps: int) -> Callable:
         inv = 1.0 / accum_steps
         grads = {n: g.mul_(inv) for n, g in acc.items()}
         metrics = {k: v.mul_(inv) for k, v in macc.items()}
+        grads, metrics = average_over(grads, metrics, group)
         return apply_grads(state, grads), metrics
 
     return step_fn

@@ -41,7 +41,19 @@ asked for.
 ``batches`` (an iterable of collated raw batches) replaces the dataset and
 its loader, for runs on synthetic data; everything else stays the same.
 
-Not ported: a mesh axis > 1 (NotImplementedError naming its key).
+``mesh: {data, sp}`` (one process a GPU under ``python -m
+torch.distributed.run``, ``parallel.mesh.init_distributed`` called first;
+the world size must be data x sp): each ``data`` rank loads its stride
+slice of the global order (dataset seed ``global_seed`` + its data index,
+loader seed ``global_seed``) at ``train_batch_size`` a rank, the ``sp``
+ranks of a data line the same samples; the steps run as ``training/
+steps.py`` says (global draws, frame-parallel UNet, gradients averaged
+once a step).  Rank 0 alone logs to the console and makes the sanity dump,
+the validation renders, the profile and the checkpoint files; the other
+ranks wait at a barrier meanwhile, and log to ``log.txt.rank{N}``.  A stop
+signal on any rank stops every rank at the same step (``sync_stop_flag``
+every step).  Every rank resumes from the same ``state.pt``.  ``mesh.fsdp``
+> 1 raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -63,6 +75,14 @@ from synfmc_tpu_torch.data.tokenizer import load_tokenizer
 from synfmc_tpu_torch.device import resolve_device
 from synfmc_tpu_torch.diffusion.scheduler import DiffusionSchedule
 from synfmc_tpu_torch.ops import kernel_launches
+from synfmc_tpu_torch.parallel.mesh import (
+    TRAIN_AXES,
+    barrier,
+    broadcast_object,
+    fetch_to_host,
+    sync_stop_flag,
+    training_mesh,
+)
 from synfmc_tpu_torch.pipelines.factory import STAGES, cast_models_, init_models
 from synfmc_tpu_torch.training import checkpoint as ckpt
 from synfmc_tpu_torch.training.config_schema import validate_config
@@ -83,6 +103,7 @@ from synfmc_tpu_torch.training.steps import (
     draw_cam,
     draw_lora,
     draw_obj,
+    draw_part,
     init_train_state,
     make_accumulating_step,
     make_cam_grads_fn,
@@ -95,11 +116,20 @@ from synfmc_tpu_torch.utils.logger import close_logger, format_time, setup_logge
 from synfmc_tpu_torch.utils.video import save_image_grid, save_videos_grid
 
 
-def _not_ported(config: dict) -> None:
-    """Raise NotImplementedError, naming the key, for a mesh axis > 1."""
-    for axis, n in (config.get("mesh") or {}).items():
-        if int(n or 1) > 1:
-            raise NotImplementedError(f"mesh.{axis}={n!r} is not ported yet")
+def mesh_from_config(config: dict):
+    """The config's ``mesh: {data, fsdp, sp}`` as a ``parallel.mesh`` training
+    mesh; ``fsdp`` > 1 raises NotImplementedError."""
+    spec = dict(config.get("mesh") or {})
+    unknown = set(spec) - set(TRAIN_AXES)
+    if unknown:
+        raise ValueError(f"mesh: unknown axes {sorted(unknown)} (want {TRAIN_AXES})")
+    sizes = {a: int(spec.get(a) or 1) for a in TRAIN_AXES}
+    if sizes["fsdp"] > 1:
+        raise NotImplementedError(
+            f"mesh.fsdp={sizes['fsdp']}: ZeRO-1 sharding of the fp32 masters and the AdamW "
+            f"moments (and the sharded checkpoint's assembly) is the next slice of the port "
+            f"(ROADMAP.md); use mesh.data and mesh.sp")
+    return training_mesh(**sizes)
 
 
 def step_config(config: dict, stage: str) -> StepConfig:
@@ -162,11 +192,10 @@ def host_state(state: TrainState, epoch: int) -> dict:
     epoch, the fp32 masters, and the AdamW moments and update count."""
     names = list(state.trainable)
     exp_avg, exp_avg_sq = state.optimizer.moments()
-    cpu = lambda t: t.detach().to("cpu", copy=True)
     return {"step": state.step, "epoch": epoch, "count": state.optimizer.count,
-            "masters": {n: cpu(state.masters[n]) for n in names},
-            "exp_avg": {n: cpu(m) for n, m in zip(names, exp_avg)},
-            "exp_avg_sq": {n: cpu(v) for n, v in zip(names, exp_avg_sq)}}
+            **fetch_to_host({"masters": {n: state.masters[n] for n in names},
+                             "exp_avg": dict(zip(names, exp_avg)),
+                             "exp_avg_sq": dict(zip(names, exp_avg_sq))})}
 
 
 @torch.no_grad()
@@ -340,25 +369,27 @@ def train(stage: str, config, batches: Optional[Iterable[dict]] = None,
         raise ValueError(f"unknown stage {stage!r} (want one of {STAGES})")
     config = load_config(config)
     config_notes = validate_config(config, stage)
-    _not_ported(config)
+    mesh = mesh_from_config(config)
     dev = resolve_device(device)
 
     name = config.get("name", f"{stage}-run")
-    run_dir = os.path.join(str(config["output_dir"]),
-                           f"{name}-{datetime.datetime.now():%Y-%m-%dT%H-%M}")
+    # rank 0's clock names the run directory of every rank
+    run_dir = broadcast_object(os.path.join(str(config["output_dir"]),
+                                            f"{name}-{datetime.datetime.now():%Y-%m-%dT%H-%M}"))
     os.makedirs(run_dir, exist_ok=True)
-    save_config(config, os.path.join(run_dir, "config.yaml"))
-    logger = setup_logger(run_dir)
+    if mesh.is_main:
+        save_config(config, os.path.join(run_dir, "config.yaml"))
+    logger = setup_logger(run_dir, mesh.rank)
     try:
         return _run(stage, config, batches, max_steps, dev, seed, on_step, run_dir, logger,
-                    config_notes, t_call)
+                    config_notes, t_call, mesh)
     finally:
         close_logger(logger)
 
 
 def _run(stage, config, batches, max_steps, dev, seed, on_step, run_dir, logger, config_notes,
-         t_call) -> dict:
-    logger.info(f"stage={stage} run_dir={run_dir} device={dev}")
+         t_call, mesh) -> dict:
+    logger.info(f"stage={stage} run_dir={run_dir} device={dev} mesh={mesh}")
     for note in config_notes:
         logger.info(note)
     global_seed = int(config.get("global_seed", 42)) if seed is None else int(seed)
@@ -372,10 +403,14 @@ def _run(stage, config, batches, max_steps, dev, seed, on_step, run_dir, logger,
         # the train_data target names the JAX package's class; the port picks
         # its own by stage, as the JAX trainer does (trainers.py:379)
         dataset_cls = UnrealTrajLoraDataset if stage == "lora" else UnrealTrajVideoDataset
-        dataset = dataset_cls(**train_data_cfg, seed=global_seed)
+        # host-side randomness per data rank; the order's seed is global, so
+        # that the ranks' stride slices partition it (trainers.py:361, :386)
+        data_index, data_count = mesh.index("data"), mesh.count("data")
+        dataset = dataset_cls(**train_data_cfg, seed=global_seed + data_index)
         loader = ShardedLoader(dataset, batch_size=int(config.get("train_batch_size", 1)),
                                collate_fn=dataset_cls.collate_fn,
-                               num_workers=int(config.get("num_workers", 4)), seed=global_seed)
+                               num_workers=int(config.get("num_workers", 4)), seed=global_seed,
+                               process_index=data_index, process_count=data_count)
         if len(loader) == 0:
             raise ValueError(
                 f"empty data loader: dataset has {len(dataset)} examples but "
@@ -420,18 +455,23 @@ def _run(stage, config, batches, max_steps, dev, seed, on_step, run_dir, logger,
         max_train_steps=max_steps,
     )
     state = init_train_state(trainable, tx, masters)
+    sp = mesh.axis("sp")
     if stage == "lora":
+        if sp.size > 1:
+            raise ValueError("stage 1 trains single frames: mesh.sp must be 1")
         grads_fn = make_lora_grads_fn(models["unet"], models["vae"], models["text"], schedule, cfg)
         draw = draw_lora
     elif stage == "cam":
         grads_fn = make_cam_grads_fn(models["unet"], models["pose_encoder"], models["vae"],
-                                     models["text"], schedule, cfg)
+                                     models["text"], schedule, cfg, sp=sp)
         draw = draw_cam
     else:
         grads_fn = make_obj_grads_fn(models["unet"], models["pose_encoder"], models["adapter"],
-                                     models["vae"], models["text"], schedule, cfg)
+                                     models["vae"], models["text"], schedule, cfg, sp=sp)
         draw = draw_obj
-    step_fn = make_accumulating_step(grads_fn, accum) if accum > 1 else step_from_grads(grads_fn)
+    group = mesh.world_group
+    step_fn = (make_accumulating_step(grads_fn, accum, group) if accum > 1
+               else step_from_grads(grads_fn, group))
     n_train, n_frozen = count_params(trainable.values()), count_params(frozen)
     logger.info(f"dtype={dtype} trainable params: {n_train / 1e6:.2f}M; "
                 f"frozen: {n_frozen / 1e6:.2f}M; accumulation {accum}; remat "
@@ -454,9 +494,9 @@ def _run(stage, config, batches, max_steps, dev, seed, on_step, run_dir, logger,
         global_step = state.step = int(pretrained_meta["omcm_global_step"])
         logger.info(f"omcm_config.pretrained: resuming step count at {global_step}")
     resume_from = config.get("resume_from")
-    if resume_from == "auto":
-        resume_from = ckpt.find_auto_resume(str(config["output_dir"]),
-                                            config.get("name", f"{stage}-run"))
+    if resume_from == "auto":  # rank 0 picks, every rank reads the same state.pt
+        resume_from = broadcast_object(ckpt.find_auto_resume(
+            str(config["output_dir"]), config.get("name", f"{stage}-run")))
         if resume_from is None:
             logger.info("resume_from: auto — no prior checkpoint, starting fresh")
     if resume_from:
@@ -505,6 +545,11 @@ def _run(stage, config, batches, max_steps, dev, seed, on_step, run_dir, logger,
     checkpoints: list[dict] = []
 
     def checkpoint(step_epoch: int, wait: bool) -> None:
+        """Rank 0 writes; with ``wait`` every rank leaves once the files exist."""
+        if not mesh.is_main:
+            if wait:
+                barrier()
+            return
         t0 = time.perf_counter()
         saved = host_state(state, step_epoch)  # before the next step changes the state
         copy_s = time.perf_counter() - t0
@@ -518,6 +563,7 @@ def _run(stage, config, batches, max_steps, dev, seed, on_step, run_dir, logger,
 
         if wait:
             write()
+            barrier()
         else:
             writer.submit(write)
 
@@ -564,16 +610,17 @@ def _run(stage, config, batches, max_steps, dev, seed, on_step, run_dir, logger,
                 logger.info(f"the batches ran out at step {global_step}")
                 break
             data_s.append(time.perf_counter() - data_t0)
-            if global_step == 0 and do_sanity:
+            if global_step == 0 and do_sanity and mesh.is_main:
                 _sanity_check_dump(run_dir, raw, stage)
-            if profile_steps and global_step == 2:
+            if profile_steps and global_step == 2 and mesh.is_main:
                 profiler = _start_profiler(dev)
             # step k's draws: a function of (seed, k, micro) alone, so a resumed
-            # run's step k draws what an uninterrupted run's step k drew
+            # run's step k draws what an uninterrupted run's step k drew; each
+            # rank takes its part of the global batch's
             draws = []
             for i, batch in enumerate(micro):
                 step_gen.manual_seed(step_seed(global_seed, global_step, i))
-                draws.append(draw(step_gen, batch, cfg, schedule))
+                draws.append(draw_part(draw, step_gen, batch, cfg, schedule, mesh.axis("data")))
             if accum > 1:
                 state, metrics = step_fn(state, micro, draws)
             else:
@@ -592,13 +639,17 @@ def _run(stage, config, batches, max_steps, dev, seed, on_step, run_dir, logger,
                 profiler = None
             if enable_validation and ((validation_steps > 0 and global_step % validation_steps == 0)
                                       or global_step in validation_tuple):
-                if cuda:  # the steps' peak so far; the render's own goes to its record
-                    peak = max(peak, torch.cuda.max_memory_allocated(dev))
-                    torch.cuda.reset_peak_memory_stats(dev)
-                validations.append(_validate(stage, run_dir, global_step, models, config,
-                                             tokenizer, schedule, dataset, dev, logger))
-                if cuda:
-                    torch.cuda.reset_peak_memory_stats(dev)
+                if mesh.is_main:  # one render, on whole clips; the others wait
+                    if cuda:  # the steps' peak so far; the render's own goes to its record
+                        peak = max(peak, torch.cuda.max_memory_allocated(dev))
+                        torch.cuda.reset_peak_memory_stats(dev)
+                    with models["unet"].frame_shard_as(None):
+                        validations.append(_validate(stage, run_dir, global_step, models,
+                                                     config, tokenizer, schedule, dataset, dev,
+                                                     logger))
+                    if cuda:
+                        torch.cuda.reset_peak_memory_stats(dev)
+                barrier()
             if global_step % logger_interval == 0 or global_step == max_steps:
                 eta = (max_steps - global_step) * step_s[-1]
                 logger.info(f"step {global_step}/{max_steps} loss {last['loss']:.4f} "
@@ -612,7 +663,7 @@ def _run(stage, config, batches, max_steps, dev, seed, on_step, run_dir, logger,
                 checkpoint(epoch, wait=not async_ckpt)
                 last_saved_step = global_step
             data_t0 = time.perf_counter()
-            if stop_requested.is_set():
+            if sync_stop_flag(stop_requested.is_set()):
                 logger.info(f"stopping on preemption signal at step {global_step}; "
                             f"final checkpoint follows")
                 metrics_out["preempted"] = True
@@ -632,6 +683,7 @@ def _run(stage, config, batches, max_steps, dev, seed, on_step, run_dir, logger,
         peak = max(peak, torch.cuda.max_memory_allocated(dev))
     if global_step != last_saved_step:
         checkpoint(epoch, wait=True)
+    barrier()  # rank 0's writes are on disk when any rank returns
     launches = {k: v - launches0[k] for k, v in kernel_launches(backward=True).items()}
     for v in validations:  # the steps' launches alone
         for k, n in v["launches"].items():

@@ -357,7 +357,7 @@ def test_build_pipeline_loads_every_file(ref):
     for key, module in (("unet", pipe.unet), ("vae", pipe.vae), ("text", pipe.text_encoder),
                         ("pose_encoder", pipe.pose_encoder), ("adapter", pipe.adapter)):
         assert_same_weights(ref["written"][key], module, KINDS[key])
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(RuntimeError, match="mesh needs a process group"):
         build_pipeline(cfg, data_parallel=2, device="cpu")
 
 

@@ -16,7 +16,7 @@ batch 1, 2 frames at 64x64, on a fixture of 2 sequences x 48 frames at
   ``_export_optimizer_state`` keys it;
 - SIGTERM through ``python -m synfmc_tpu_torch.scripts.train`` exits 0 with
   ``'preempted': True`` and a checkpoint that resumes;
-- a mesh axis > 1, the one config key not ported, raises
+- ``mesh.fsdp`` > 1, the one config key not ported, raises
   NotImplementedError naming its key.
 
 No JAX program is compiled: the JAX side is numpy code and param shapes.
