@@ -83,8 +83,9 @@ Phases, each raising on failure (non-zero exit):
                 to run b's saved one bit for bit, losses after the resume
                 within 1e-2 relative of run a's, run a's last cmcm-step-6.ckpt
                 through build_pipeline equal to its final weights; first-step
-                seconds, data wait and step ms, checkpoint seconds and bytes,
-                peak; then `python -m synfmc_tpu_torch.scripts.validate_dataset`
+                seconds, data wait and step ms, each checkpoint's path (a
+                device snapshot the writer copies to the host, or a host
+                copy in the loop), seconds and bytes, peak; then `python -m synfmc_tpu_torch.scripts.validate_dataset`
                 on the fixture's config: exit 0;
  10. train-stages - the three stages chained as a user runs them, on the
                 same files: first, in process with seeded weights, one
@@ -131,10 +132,15 @@ Phases, each raising on failure (non-zero exit):
                 2 x sp 2, request (a) frame-parallel (finite latents, the
                 difference from the single run reported), then the tiny fp32
                 pipeline in exact + OMC, turbo + DPM++, DeepCache and
-                CFG-cache within 1e-3 of the single run; (d) 2 ranks:
-                `train("cam")` at full width on {data: 2}, then {sp: 2}, 2
-                steps each (replica checksums equal bit for bit), and phase
-                5's tiny step on both meshes against one process on the
+                CFG-cache within 1e-3 of the single run, and phase 5's tiny
+                step on {fsdp: 2, sp: 2}; (d) 2 ranks: `train("cam")` at full
+                width on {data: 2}, {sp: 2}, then {fsdp: 2} (ZeRO-1: the
+                first loss bit for bit with phase 7's, the second within
+                1e-3, each rank's fp32 masters and moments at most 0.55 of
+                {data: 2}'s, the state.pt gathered from the shards cast to
+                bf16 equal to the working weights), 2 steps each (replica
+                checksums equal bit for bit), and phase 5's tiny step on
+                {data: 2}, {sp: 2} and {fsdp: 2} against one process on the
                 concatenated batch with phase 5's limits; (e) a SIGTERM on
                 rank 1 of a tiny {data: 2} run stops both ranks at the same
                 step.  Launches exact per rank everywhere; ms a step a rank,
@@ -2101,15 +2107,15 @@ def train_files(card: str, root: str, w: dict) -> Counter:
 
         a, c = runs["a"], runs["c"]
         ms = lambda ts: ["%.1f" % (t * 1e3) for t in ts]
-        ckpts = [(k["step"], round(k["copy_s"], 3), round(k["write_s"], 2),
-                  round(k["bytes"] / 2**30, 3)) for k in a["checkpoints"]]
+        ckpts = [(k["step"], k["path"], round(k["copy_s"], 3), round(k["writer_copy_s"], 3),
+                  round(k["write_s"], 2), round(k["bytes"] / 2**30, 3)) for k in a["checkpoints"]]
         per_step = {k: v // FILES_STEPS for k, v in a["launches"].items()}
         log(f"[train-files] run a ({FILES_STEPS} steps, batch {cfg['train_batch_size']}, "
             f"{cfg['num_workers']} workers): process {a['process_s']:.1f} s, first step "
             f"{a['first_step_s']:.2f} s after train(); step "
             f"{statistics.median(a['step_s'][1:]) * 1e3:.1f} ms median of steps 2-{FILES_STEPS} "
-            f"{ms(a['step_s'])}; data wait {ms(a['data_s'])} ms; checkpoints (step, host copy "
-            f"s, write s, GiB) {ckpts}; peak {a['peak_gib']:.2f} GiB; launches per step "
+            f"{ms(a['step_s'])}; data wait {ms(a['data_s'])} ms; checkpoints (step, path, s in "
+            f"the loop, the writer's host copy s, write s, GiB) {ckpts}; peak {a['peak_gib']:.2f} GiB; launches per step "
             f"{per_step}; resume (run c): process {c['process_s']:.1f} s, first step "
             f"{c['first_step_s']:.2f} s after train(), data wait {ms(c['data_s'])} ms, peak "
             f"{c['peak_gib']:.2f} GiB; {card}")
@@ -2813,13 +2819,15 @@ def tools_alone(card: str) -> Counter:
 
 MESH_HEAD = ("[mesh] one process a rank under python -m torch.distributed.run on the one card: "
              "(a) NCCL at world size 1, (b) data-parallel serving on 2 ranks, (c) frame-parallel "
-             "serving on 4 (data 2 x sp 2), (d) training on 2 (data 2, then sp 2), (e) the "
+             "serving on 4 (data 2 x sp 2), (d) training on 2 (data 2, sp 2, then fsdp 2), (e) the "
              "collective stop; (b)-(e) over gloo on cuda:0 (NCCL refuses two ranks on one "
              "device), so these runs show the mesh right, not its scaling; every collective runs "
              "on the CUDA tensors themselves, gloo's included (none is staged through the host)")
 MESH_STEPS = 2  # full-width train steps a mesh
 MESH_TINY = [c for c in COMPOSE_CASES if c[0] in ("omc", "turbo+dpmpp", "deepcache", "cfgcache")]
 MESH_STOP_AT = 2  # rank 1 sends itself SIGTERM after this step
+FSDP_STATE_SHARE = 0.55  # a {fsdp: 2} rank's masters and moments against {data: 2}'s
+FSDP_LOSS_REL_TOL = 1e-3  # its losses after the first update against one process's
 
 
 def _free_port() -> int:
@@ -2931,10 +2939,11 @@ def tiny_train_steps(mesh_sizes: dict) -> dict:
     """Phase 5's tiny stage-2 model in fp32 on a training mesh (one rank
     without a process group): 2 steps on global batches of 2 samples with
     global draws, each rank on its part.  The first step's loss and averaged
-    gradients, the trainable tensors after the 2 AdamW steps (on the CPU)."""
+    gradients (under fsdp gathered whole), the trainable tensors after the 2
+    AdamW steps (on the CPU)."""
     from synfmc_tpu_torch.data.tokenizer import HashTokenizer
     from synfmc_tpu_torch.diffusion.scheduler import DiffusionSchedule
-    from synfmc_tpu_torch.parallel.mesh import shard, training_mesh
+    from synfmc_tpu_torch.parallel.mesh import gather_shards, shard, training_mesh
     from synfmc_tpu_torch.pipelines.factory import build_models, init_random_
     from synfmc_tpu_torch.training.optim import make_optimizer
     from synfmc_tpu_torch.training.params import partition_params, stage2_cmc_unet_trainable
@@ -2964,7 +2973,7 @@ def tiny_train_steps(mesh_sizes: dict) -> dict:
         partition_params(models[name], lambda n: False)
     grads_fn = make_cam_grads_fn(models["unet"], models["pose_encoder"], models["vae"],
                                  models["text"], schedule, scfg, sp=mesh.axis("sp"))
-    state = init_train_state(trainable, make_optimizer(COMPOSE_LR))
+    state = init_train_state(trainable, make_optimizer(COMPOSE_LR), mesh=mesh)
     tok, batches, out = HashTokenizer(), synthetic_batches(3, b=2), {}
     part = shard(2, mesh.axis("data"), "samples")
     for step in range(2):
@@ -2974,22 +2983,27 @@ def tiny_train_steps(mesh_sizes: dict) -> dict:
         grads, metrics = average_over(*grads_fn(state.trainable, {k: v.cuda() for k, v in
                                                                    batch.items()},
                                                 draws.part(part, 2).to("cuda")),
-                                      mesh.world_group)
+                                      mesh.world_group, state.shards)
         if step == 0:
             out["loss"] = float(metrics["loss"])
-            out["grads"] = {n: g.detach().cpu() for n, g in grads.items()}
+            wrapped = grads if state.shards is None else state.shards.wrap(grads)
+            out["grads"] = {n: g.detach().cpu() for n, g in gather_shards(wrapped).items()}
         apply_grads(state, grads)
     out["params"] = {n: p.detach().cpu() for n, p in state.trainable.items()}
     return out
 
 
 def _mesh_train(mesh: dict, seed: int, steps: int = MESH_STEPS, stop_at=None,
-                trace: bool = False, tiny: bool = False) -> dict:
+                trace: bool = False, tiny: bool = False, ckpt_every=None) -> dict:
     """train("cam", configs/cam.yaml) at full width (``tiny``: phase 5's
     tiny widths in fp32) on the mesh ``mesh`` and synthetic batches of
     ``seed``: per step the trainable checksum, the launches and the bytes the
-    collectives sent; the losses, the seconds, the peak; with ``trace`` the
-    collectives of the last step traced."""
+    collectives sent (by op) and their host seconds; the losses, the seconds,
+    the peak, this rank's bytes of masters and moments, the checkpoints;
+    with ``trace`` the collectives of the last step traced; with
+    ``ckpt_every`` checkpoints every that many steps, and rank 0 holds the
+    last state.pt's masters, cast to the working type, to the working
+    weights (tensor by tensor, and their checksums)."""
     import shutil
     import signal
     import tempfile
@@ -2998,13 +3012,15 @@ def _mesh_train(mesh: dict, seed: int, steps: int = MESH_STEPS, stop_at=None,
 
     from synfmc_tpu_torch.parallel import collectives
     from synfmc_tpu_torch.parallel.mesh import rank
+    from synfmc_tpu_torch.training import checkpoint as ckpt
     from synfmc_tpu_torch.training.trainers import checksum, train
 
     from torch.profiler import ProfilerActivity, profile
 
-    kernels, per_step, traced = counters(), [], {}
+    kernels, per_step, traced, live = counters(), [], {}, {}
 
     def on_step(state, metrics, draws):
+        live["state"] = state
         if trace and state.step == steps - 1:
             torch.cuda.synchronize()
             traced["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
@@ -3015,6 +3031,7 @@ def _mesh_train(mesh: dict, seed: int, steps: int = MESH_STEPS, stop_at=None,
         per_step.append({"launches": {k: fn.launches for k, fn in kernels.items()},
                          "checksum": checksum(state.trainable.values()),
                          "bytes": sum(collectives.BYTES.values()),
+                         "bytes_by_op": dict(collectives.BYTES),
                          "host_s": sum(collectives.SECONDS.values())})
         for fn in kernels.values():
             fn.launches = 0
@@ -3029,19 +3046,35 @@ def _mesh_train(mesh: dict, seed: int, steps: int = MESH_STEPS, stop_at=None,
             cfg = yaml.safe_load(fh)
     if mesh:
         cfg["mesh"] = mesh
+    if ckpt_every:
+        cfg["checkpointing_steps"] = ckpt_every
     cfg["output_dir"] = tempfile.mkdtemp(prefix="synfmc_mesh_train_")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     collectives.reset_counters()
     for fn in kernels.values():
         fn.launches = 0
+    state_check = None
     try:
         out = train("cam", cfg, synthetic_batches(seed), steps, seed=0, on_step=on_step)
+        peak = torch.cuda.max_memory_allocated()
+        if ckpt_every and rank() == 0:
+            saved = ckpt.restore_native(os.path.join(out["run_dir"], "checkpoints",
+                                                     f"step-{out['steps']}"))
+            working = live["state"].trainable
+            cast = {n: m.cuda().to(working[n].dtype) for n, m in saved["masters"].items()}
+            state_check = {
+                "equal": sum(torch.equal(cast[n], p) for n, p in working.items()),
+                "tensors": len(working),
+                "file_checksum": checksum(t.contiguous() for t in cast.values()),
+                "working_checksum": checksum(p.contiguous() for p in working.values())}
+            del cast, saved
     finally:
         shutil.rmtree(cfg["output_dir"], ignore_errors=True)
     return {"losses": out["losses"], "steps": out["steps"], "preempted": out.get("preempted"),
             "per_step": per_step, "step_s": out["step_s"],
-            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "peak_gib": peak / 2**30, "state_bytes": out["state_bytes"], "checkpoints": out["checkpoints"],
+            "assembled": out["assembled"], "state_check": state_check,
             "trace": _collective_ms(traced["prof"]) if trace else None}
 
 
@@ -3094,8 +3127,13 @@ def mesh_child(group: str, root: str) -> int:
         res["train_data"] = _mesh_train({"data": 2}, seed=10 + rank())
         res["train_sp"] = _mesh_train({"sp": 2}, seed=10, trace=True)
         torch.cuda.empty_cache()
+        # phase 7's batches on both ranks: the fsdp ranks of a data line see the
+        # same samples; one checkpoint, at the last step, gathered from the shards
+        res["train_fsdp"] = _mesh_train({"fsdp": 2}, seed=0, trace=True, ckpt_every=MESH_STEPS)
+        torch.cuda.empty_cache()
         res["tiny_data"] = tiny_train_steps({"data": 2})
         res["tiny_sp"] = tiny_train_steps({"sp": 2})
+        res["tiny_fsdp"] = tiny_train_steps({"fsdp": 2})
         res["stop"] = _mesh_train({"data": 2}, seed=10 + rank(), steps=6, stop_at=MESH_STOP_AT,
                                   tiny=True)
     elif group == "gloo4":
@@ -3116,6 +3154,8 @@ def mesh_child(group: str, root: str) -> int:
                                mesh_inputs(pipe, 1, frames, height, width), kw, steps=3,
                                decode=False, frames=frames, height=height, width=width)
             res["tiny"][label] = out["latents"]
+        del pipe
+        res["tiny_fsdp_sp"] = tiny_train_steps({"fsdp": 2, "sp": 2})
     else:
         raise ValueError(f"unknown mesh group {group!r}")
     torch.save(res, os.path.join(root, f"{group}.rank{rank()}.pt"))
@@ -3169,6 +3209,68 @@ def _mesh_generate(root: str, card: str) -> None:
                              f"{np.abs(a['video'] - b['video']).max()}")
     log(f"  (a) generate --data-parallel 1 under torchrun (NCCL, world 1): {wall:.1f} s; frames "
         f"{a['video'].shape} equal the in-process run's bit for bit; {line}; {card}")
+
+
+def _check_tiny(name: str, ranks: list, ref: dict) -> None:
+    """Phase 5's tiny step on a mesh (``ranks``' tiny_train_steps) against one
+    process (``ref``) with phase 5's limits; every rank's parameters equal."""
+    got = ranks[0]
+    loss_rel = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+    grad_rel = max(kernel_error(got["grads"][n], g)[1] for n, g in ref["grads"].items())
+    param_err = max((got["params"][n] - p).abs().max().item() for n, p in ref["params"].items())
+    same = all(torch.equal(x["params"][n], p) for x in ranks[1:] for n, p in got["params"].items())
+    log(f"  {name} vs one process on the concatenated batch: loss rel {loss_rel:.2e} (1e-5), "
+        f"gradients {grad_rel:.2e} (1e-3), parameters after 2 AdamW steps {param_err:.2e} "
+        f"(2 lr), replicas equal {same}")
+    if not (loss_rel < 1e-5 and grad_rel < 1e-3 and param_err < 2 * COMPOSE_LR and same):
+        raise AssertionError(f"{name}: loss {loss_rel}, grads {grad_rel}, params {param_err}, "
+                             f"replicas equal {same}")
+
+
+def _check_fsdp(r2: list, ref_losses: list, launches: Counter, card: str) -> None:
+    """(d) on {fsdp: 2}: the first loss equal to the single process's bit
+    for bit and the later ones within FSDP_LOSS_REL_TOL, the replicas'
+    working weights equal bit for bit after every step, launches exact, a
+    rank's masters and moments at most FSDP_STATE_SHARE of {data: 2}'s, and
+    the gathered state.pt, cast to bf16, equal to the working weights."""
+    fs = [x["train_fsdp"] for x in r2]
+    sums = [[st["checksum"] for st in x["per_step"]] for x in fs]
+    if sums[0] != sums[1]:
+        raise AssertionError(f"(d) train_fsdp: replica checksums differ: {sums}")
+    for r, x in enumerate(fs):
+        _per_step_exact(f"(d) train_fsdp rank {r}", x["per_step"], TRAIN_PER_STEP)
+        for st in x["per_step"]:
+            launches.update(st["launches"])
+        rel = [abs(a - b) / abs(b) for a, b in zip(x["losses"][1:], ref_losses[1:])]
+        share = x["state_bytes"] / r2[r]["train_data"]["state_bytes"]
+        log(f"  (d) train_fsdp rank {r}: losses {x['losses']} (one process {ref_losses}: the "
+            f"first bit for bit, then relative {['%.2e' % v for v in rel]}, limit "
+            f"{FSDP_LOSS_REL_TOL}), step {['%.1f' % (t * 1e3) for t in x['step_s']]} ms, peak "
+            f"{x['peak_gib']:.2f} GiB (data=2: {r2[r]['train_data']['peak_gib']:.2f}), fp32 "
+            f"masters and moments {x['state_bytes']} bytes = {share:.4f} of data=2's "
+            f"{r2[r]['train_data']['state_bytes']} (limit {FSDP_STATE_SHARE}), bytes sent a step "
+            f"by op {[st['bytes_by_op'] for st in x['per_step']]}, host s in the collectives "
+            f"a step {['%.3f' % st['host_s'] for st in x['per_step']]}, checksums {sums[r]} "
+            f"(equal on both ranks), checkpoints assembled at steps {x['assembled']}; {card}")
+        if x["losses"][0] != ref_losses[0] or not all(v < FSDP_LOSS_REL_TOL for v in rel):
+            raise AssertionError(f"(d) train_fsdp rank {r}: losses {x['losses']} vs one "
+                                 f"process {ref_losses}")
+        if not share <= FSDP_STATE_SHARE:
+            raise AssertionError(f"(d) train_fsdp rank {r}: masters and moments {share:.4f} of "
+                                 f"data=2's")
+    chk = fs[0]["state_check"]
+    (c,) = fs[0]["checkpoints"]
+    log(f"  (d) train_fsdp checkpoint at step {c['step']}: {c['path']}, {c['copy_s']:.3f} s in "
+        f"the loop of which the gather {c['gather_s']:.3f} s, host copy "
+        f"{c['writer_copy_s']:.3f} s and write {c['write_s']:.2f} s in the writer, "
+        f"{c['bytes'] / 2**30:.3f} GiB; state.pt's masters as bf16 equal the working weights "
+        f"in {chk['equal']} of {chk['tensors']} tensors, checksums {chk['file_checksum']} / "
+        f"{chk['working_checksum']}; {card}")
+    if chk["equal"] != chk["tensors"] or chk["file_checksum"] != chk["working_checksum"]:
+        raise AssertionError(f"(d) train_fsdp: the gathered state.pt differs from the working "
+                             f"weights: {chk}")
+    log(f"  (d) fsdp=2 train step {MESH_STEPS}, collectives traced (rank 0): "
+        f"{json.dumps(fs[0]['trace'])}; {card}")
 
 
 def mesh_phase(card: str, ref_losses=None) -> Counter:
@@ -3250,20 +3352,10 @@ def mesh_phase(card: str, ref_losses=None) -> Counter:
                     f"{[s['checksum'] for s in x['per_step']]} (equal on both ranks)")
         log(f"  (d) sp=2 train step {MESH_STEPS}, collectives traced (rank 0): "
             f"{json.dumps(r2[0]['train_sp']['trace'])}")
+        _check_fsdp(r2, list(ref_losses), launches, card)
         ref = tiny_train_steps({})
-        for key in ("tiny_data", "tiny_sp"):
-            got = r2[0][key]
-            loss_rel = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
-            grad_rel = max(kernel_error(got["grads"][n], g)[1] for n, g in ref["grads"].items())
-            param_err = max((got["params"][n] - p).abs().max().item()
-                            for n, p in ref["params"].items())
-            same = all(torch.equal(r2[1][key]["params"][n], p) for n, p in got["params"].items())
-            log(f"  (d) {key} vs one process on the concatenated batch: loss rel "
-                f"{loss_rel:.2e} (1e-5), gradients {grad_rel:.2e} (1e-3), parameters after 2 "
-                f"AdamW steps {param_err:.2e} (2 lr), replicas equal {same}")
-            if not (loss_rel < 1e-5 and grad_rel < 1e-3 and param_err < 2 * COMPOSE_LR and same):
-                raise AssertionError(f"(d) {key}: loss {loss_rel}, grads {grad_rel}, params "
-                                     f"{param_err}, replicas equal {same}")
+        for key in ("tiny_data", "tiny_sp", "tiny_fsdp"):
+            _check_tiny(f"(d) {key}", [x[key] for x in r2], ref)
         stops = [x["stop"] for x in r2]
         if [s["steps"] for s in stops] != [MESH_STOP_AT] * 2 or not all(s["preempted"]
                                                                        for s in stops):
@@ -3274,6 +3366,7 @@ def mesh_phase(card: str, ref_losses=None) -> Counter:
 
         # (c): 4 ranks, data 2 x sp 2 (run beside (a))
         r4 = _ranks(root, "gloo4", 4)
+        _check_tiny("(c) tiny_fsdp_sp on fsdp 2 x sp 2", [x["tiny_fsdp_sp"] for x in r4], ref)
         log(f"  4-rank child (beside (a)'s runs): {wall4:.1f} s")
         want = expected_launches({}, "pan", FRAMES // 2)
         for r, x in enumerate(r4):

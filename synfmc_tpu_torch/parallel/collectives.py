@@ -12,6 +12,10 @@ kernels stay as they are:
 - ``all_gather``: whole frames (``sp``), a whole batch or the CFG pair
   (``data``);
 - ``all_reduce_``: the gradient average and the loss, once a step;
+- ``reduce_scatter_`` and ``all_gather_into_`` (mesh.fsdp > 1): the split
+  tensors' gradients summed into each rank's part of a rank-major flat
+  buffer, and the updated parts gathered back (``mesh.FsdpShards``), once
+  each a step, and a sharded checkpoint's assembly;
 - ``all_reduce_max``, ``barrier``.
 
 Every op runs on the tensors' own device, CUDA tensors under gloo too: the
@@ -139,6 +143,21 @@ def rows_to_frames(y: torch.Tensor, group, index: int, splits: Sequence[int],
     return _RowsToFrames.apply(y, group, index, tuple(splits), tuple(shape))
 
 
+def all_gather_into_(out: torch.Tensor, inp: torch.Tensor, group) -> None:
+    """The group's ``inp`` (equal sizes) laid end to end in rank order into
+    ``out``'s own storage."""
+    with _op("all_gather_into_tensor", inp.numel() * inp.element_size()):
+        dist.all_gather_into_tensor(out, inp, group=group)
+
+
+def reduce_scatter_(out: torch.Tensor, inp: torch.Tensor, group) -> None:
+    """The sum over the group of ``inp`` (size x ``out.numel()`` elements,
+    rank-major: part j for rank j), this rank's part into ``out``.  The
+    bytes counted are the parts this rank sends on."""
+    with _op("reduce_scatter", inp.element_size() * (inp.numel() - out.numel())):
+        dist.reduce_scatter_tensor(out, inp, group=group)
+
+
 def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     """The group's equal shards of ``x`` concatenated along ``dim``, in rank
     order (not differentiable).  A group of one returns ``x``."""
@@ -147,21 +166,26 @@ def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
         return x
     xt = x.movedim(dim, 0).contiguous()
     out = xt.new_empty((size * xt.shape[0], *xt.shape[1:]))
-    with _op("all_gather_into_tensor", xt.numel() * xt.element_size()):
-        dist.all_gather_into_tensor(out, xt, group=group)
+    all_gather_into_(out, xt, group)
     return out.movedim(0, dim)
 
 
 def all_reduce_(tensors: Sequence[torch.Tensor], group, average: bool = True) -> None:
     """Sum (or average) each tensor over the group, in place, through one
-    flat fp32 buffer (one collective for all of them)."""
+    flat fp32 buffer (one collective for all of them; a lone contiguous fp32
+    tensor is its own buffer)."""
     if _size(group) == 1 or not tensors:
         return
-    flat = torch.cat([t.reshape(-1).float() for t in tensors])
+    in_place = (len(tensors) == 1 and tensors[0].dtype == torch.float32
+                and tensors[0].is_contiguous())
+    flat = tensors[0].view(-1) if in_place else torch.cat([t.reshape(-1).float()
+                                                           for t in tensors])
     with _op("all_reduce", flat.numel() * flat.element_size()):
         dist.all_reduce(flat, group=group)
     if average:
         flat.div_(_size(group))
+    if in_place:
+        return
     offset = 0
     for t in tensors:
         n = t.numel()

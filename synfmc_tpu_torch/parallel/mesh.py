@@ -10,8 +10,12 @@ varying fastest, and every line of every axis gets a process group.
 - ``init_distributed`` joins the group torchrun's environment describes;
 - ``Mesh`` holds this rank's coordinates and its line of each axis;
 - ``is_main_process``, ``local_shard_indices`` and ``sync_stop_flag`` are the
-  JAX module's; ``fetch_to_host`` is trivial while nothing is sharded
-  (``mesh.fsdp`` = 1: every rank holds every tensor whole).
+  JAX module's;
+- ``fsdp_rows`` is ``shard_over_fsdp``'s rule as a pure function of names and
+  shapes, ``FsdpShards`` a tensor set's ZeRO-1 layout on this rank (its rank-
+  major flat buffer), ``Shard`` a rank's rows of one tensor, and
+  ``gather_shards`` / ``fetch_to_host`` assemble a tree of them (a collective
+  over the fsdp line, as the JAX module's ``process_allgather``).
 
 A mesh never falls back: a world size that does not fit it, a mesh > 1
 without a process group, and two NCCL ranks on one device all raise.
@@ -149,6 +153,16 @@ class Mesh:
                 group = dist.new_group(list(ranks)) if len(ranks) > 1 else None
                 if self.rank in ranks:
                     self.axes[name] = Axis(name, group, ranks, int(here[i]))
+        # the replica plane: the ranks of this rank's fsdp index (data x sp),
+        # over which a sharded gradient sums after the fsdp reduce-scatter
+        self.replicas: Optional[Axis] = None
+        if self.shape.get("fsdp", 1) > 1:
+            i = self.names.index("fsdp")
+            for plane in np.moveaxis(grid, i, 0).reshape(self.shape["fsdp"], -1):
+                ranks = tuple(int(r) for r in plane)
+                group = dist.new_group(list(ranks)) if len(ranks) > 1 else None
+                if self.rank in ranks:
+                    self.replicas = Axis("replicas", group, ranks, ranks.index(self.rank))
 
     def _desc(self) -> str:
         return " x ".join(f"{k}={v}" for k, v in self.shape.items())
@@ -231,13 +245,170 @@ def _object_device() -> Optional[torch.device]:
     return torch.device("cpu")
 
 
-def fetch_to_host(tree: Any) -> Any:
-    """A tree of tensors copied to host memory.  Every rank holds every
-    tensor whole (``mesh.fsdp`` = 1), so no collective is needed."""
-    if isinstance(tree, torch.Tensor):
-        return tree.detach().to("cpu", copy=True)
+MIN_SHARD_ELEMENTS = 1024  # shard_over_fsdp's min_size
+
+
+def fsdp_rows(shapes: dict, fsdp: int, index: int,
+              min_size: int = MIN_SHARD_ELEMENTS) -> dict:
+    """``shard_over_fsdp``'s rule (synfmc_tpu/parallel/mesh.py:121-154) on
+    named shapes: a tensor whose dim 0 ``fsdp`` divides and that holds at
+    least ``min_size`` elements is split on dim 0 over the fsdp line, and
+    rank ``index`` of the line owns the rows ``slice`` returned for it; any
+    other tensor is replicated (None).  torch's dim 0 is the out-features or
+    out-channels, where flax's is the in-features or the kernel height, so
+    the set of split tensors differs from the JAX package's (memory only)."""
+    rows = {}
+    for name, shape in shapes.items():
+        shape = tuple(shape)
+        split = fsdp > 1 and shape and shape[0] % fsdp == 0 and math.prod(shape) >= min_size
+        k = shape[0] // fsdp if split else 0
+        rows[name] = slice(index * k, (index + 1) * k) if split else None
+    return rows
+
+
+@dataclasses.dataclass
+class Shard:
+    """This rank's rows of a tensor split on dim 0 over the fsdp line
+    ``axis``: ``local`` holds rank ``axis.index``'s equal part, the line's
+    ranks the others in order."""
+
+    local: torch.Tensor
+    axis: Axis
+
+    @property
+    def whole_shape(self) -> tuple:
+        return (self.local.shape[0] * self.axis.size, *self.local.shape[1:])
+
+
+class FsdpShards:
+    """A named tensor set's ZeRO-1 layout on this rank of ``mesh``
+    (``fsdp_rows`` of ``shapes``): the fsdp line, the replica plane, the
+    rows this rank owns of each split tensor, and the rank-major flat buffer
+    that carries the split tensors through one collective each way: part j
+    is rank j's rows of every split tensor, laid end to end in name order."""
+
+    def __init__(self, mesh: Mesh, shapes: dict):
+        self.axis, self.plane = mesh.axis("fsdp"), mesh.replicas
+        self.shapes = {n: tuple(s) for n, s in shapes.items()}
+        self.rows = fsdp_rows(self.shapes, self.axis.size, self.axis.index)
+        self.names = [n for n, r in self.rows.items() if r is not None]
+        self.chunk = {n: math.prod(self.shapes[n]) // self.axis.size for n in self.names}
+        self.offset, c = {}, 0
+        for n in self.names:
+            self.offset[n], c = c, c + self.chunk[n]
+        self.part = c  # elements of one rank's part
+
+    def local_shape(self, name: str) -> tuple:
+        shape = self.shapes[name]
+        return (shape[0] // self.axis.size, *shape[1:]) if self.rows[name] else shape
+
+    def take(self, name: str, whole: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of ``whole`` (a view), or ``whole`` if replicated."""
+        r = self.rows[name]
+        return whole if r is None else whole[r]
+
+    def _parts(self, flat: torch.Tensor, name: str) -> torch.Tensor:
+        """``name``'s rows of every rank in the flat buffer, (size, k, ...)."""
+        o, c = self.offset[name], self.chunk[name]
+        return flat.view(self.axis.size, self.part)[:, o:o + c].view(
+            self.axis.size, *self.local_shape(name))
+
+    def pack(self, tensors: dict, dtype: torch.dtype) -> torch.Tensor:
+        """The split tensors (whole, by name, any strides: a conv weight is
+        channels-last) as the rank-major flat buffer in ``dtype``, each
+        rank's rows in logical order: ``size * part`` elements."""
+        ref = tensors[self.names[0]]
+        flat = torch.empty(self.axis.size * self.part, dtype=dtype, device=ref.device)
+        for n in self.names:
+            self._parts(flat, n).copy_(tensors[n].unflatten(0, (self.axis.size, -1)))
+        return flat
+
+    def unpack_into(self, flat: torch.Tensor, tensors: dict) -> None:
+        """Write the rank-major flat buffer into the whole tensors (by name)."""
+        for n in self.names:
+            tensors[n].unflatten(0, (self.axis.size, -1)).copy_(self._parts(flat, n))
+
+    def split(self, part: torch.Tensor) -> dict:
+        """One rank's part of the flat buffer as views of each split
+        tensor's rows."""
+        return {n: part[self.offset[n]:self.offset[n] + self.chunk[n]].view(self.local_shape(n))
+                for n in self.names}
+
+    def wrap(self, tensors: dict) -> dict:
+        """``tensors`` (this rank's, by name) with each split tensor's rows
+        as a ``Shard``, for ``gather_shards`` / ``fetch_to_host``."""
+        return {n: Shard(t, self.axis) if self.rows[n] else t for n, t in tensors.items()}
+
+
+def _map_leaves(fn, tree: Any) -> Any:
+    """``fn`` on every leaf of a tree of dicts, lists and tuples."""
     if isinstance(tree, dict):
-        return {k: fetch_to_host(v) for k, v in tree.items()}
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(fetch_to_host(v) for v in tree)
-    return tree
+        return type(tree)(_map_leaves(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _leaves(tree: Any) -> list:
+    out: list = []
+    _map_leaves(out.append, tree)
+    return out
+
+
+def tree_map(fn, tree: Any) -> Any:
+    """``fn`` on every tensor of a tree, a ``Shard``'s rows included (the
+    result stays a ``Shard``); other leaves as they are."""
+    def leaf(x):
+        if isinstance(x, torch.Tensor):
+            return fn(x)
+        if isinstance(x, Shard):
+            return Shard(fn(x.local), x.axis)
+        return x
+
+    return _map_leaves(leaf, tree)
+
+
+def tree_nbytes(tree: Any) -> int:
+    """The bytes of a tree's tensors, a ``Shard`` counted whole."""
+    n = 0
+    for x in _leaves(tree):
+        if isinstance(x, Shard):
+            n += x.local.element_size() * math.prod(x.whole_shape)
+        elif isinstance(x, torch.Tensor):
+            n += x.element_size() * x.numel()
+    return n
+
+
+def gather_shards(tree: Any) -> Any:
+    """The tree with every ``Shard`` replaced by its whole tensor on this
+    rank's device; other leaves as they are.  A collective: every rank of
+    the fsdp line calls it at the same point with the same tree structure;
+    one all-gather of a rank-major flat buffer for each (line, dtype), and
+    the whole tensors land on every rank of the line.  Without a ``Shard``
+    it runs nothing."""
+    shards = [x for x in _leaves(tree) if isinstance(x, Shard)]
+    whole: dict = {}
+    buckets: dict = {}
+    for s in shards:
+        buckets.setdefault((s.axis.ranks, s.local.dtype), []).append(s)
+    for bucket in buckets.values():
+        axis = bucket[0].axis
+        send = torch.cat([s.local.reshape(-1) for s in bucket])
+        recv = send.new_empty((axis.size, send.numel()))
+        collectives.all_gather_into_(recv.view(-1), send, axis.group)
+        o = 0
+        for s in bucket:
+            c = s.local.numel()
+            whole[id(s)] = recv[:, o:o + c].reshape(s.whole_shape)
+            o += c
+        del recv
+    return _map_leaves(lambda x: whole[id(x)] if isinstance(x, Shard) else x, tree)
+
+
+def fetch_to_host(tree: Any) -> Any:
+    """The counterpart of the JAX module's ``fetch_to_host``: the tree with
+    every tensor whole in host memory.  On a sharded tree (``Shard`` leaves)
+    it is a collective (``gather_shards``): every rank of the fsdp line calls
+    it at the same point, and the whole tensors land on every caller's host.
+    Without a ``Shard`` it is a copy, and no collective runs."""
+    return tree_map(lambda t: t.detach().to("cpu", copy=True), gather_shards(tree))

@@ -4,15 +4,18 @@
         [--max-steps N] [--device cpu]
 
     python -m torch.distributed.run --nproc-per-node N -m synfmc_tpu_torch.scripts.train \\
-        --distributed --stage cam --config C   # the config's mesh: {data, sp}, data x sp = N
+        --distributed --stage cam --config C   # the config's mesh: {data, fsdp, sp},
+                                               # data x fsdp x sp = N
 
 Runs ``training.trainers.train`` for the stage (1: image LoRA, 2: CMC, 3:
 OMC) on the GPU unless ``--device cpu`` is given and prints the metrics dict
 on its last line (with ``'preempted': True`` after a SIGTERM or SIGINT, which
 stops the run cleanly after a final checkpoint).  ``--distributed`` (the JAX
 flag) joins the process group of ``torch.distributed.run`` first: one
-process a GPU, NCCL (gloo with ``--device cpu``).  A config whose mesh is
-larger than 1 raises without it.
+process a GPU, NCCL (gloo with ``--device cpu``); the config's ``mesh``
+lays the ranks out (``mesh: {fsdp: 2}`` shards the fp32 masters and the
+AdamW moments over 2 ranks that see the same samples).  A config whose mesh
+is larger than 1 raises without it.
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; 'cpu' runs the plain versions)")
     p.add_argument("--distributed", action="store_true",
-                   help="join the process group of python -m torch.distributed.run")
+                   help="join the process group of python -m torch.distributed.run; the "
+                        "config's mesh: {data, fsdp, sp} lays out its ranks")
     return p.parse_args(argv)
 
 

@@ -12,10 +12,11 @@ The counterpart of synfmc_tpu/training/checkpoint.py.
   files.  A step directory is written under a temporary name and renamed
   into place, so that ``latest_native`` never finds a partial one.
   ``latest_native`` and ``find_auto_resume`` are the JAX package's (:91-134).
-  On a mesh rank 0 alone writes (``save_native`` raises elsewhere; every
-  rank holds the whole state, ``mesh.fsdp`` = 1), every rank reads the same
-  file, and the trainer puts a barrier after a write that a later step or
-  run could read.
+  On a mesh rank 0 alone writes (``save_native`` raises elsewhere), from
+  the whole state that every rank has assembled (under ``mesh.fsdp`` > 1
+  gathered from the ranks' rows), so the file is the same whatever the
+  layout; every rank reads the same file, and the trainer puts a barrier
+  after a write that a later step or run could read.
 - **Reference bundles**, state dicts by reference name on the CPU, the
   ``optimizer_state_dict`` in ``torch.optim.AdamW`` form with its parameters
   in the reference's positional order (``export_adamw_state_dict``, from

@@ -44,14 +44,22 @@ On a mesh (one process a rank; ``parallel/mesh.py``):
   anchor, a global frame index, is read from the step's whole noise draw;
 - the gradients (summed over the micro-batches) and the metrics are averaged
   over every rank once an optimizer step, in fp32 and before the clip, whose
-  norm is then global (``group`` of the step functions).
+  norm is then global (``group`` of the step functions);
+- ``fsdp`` (ZeRO-1, ``TrainState.shards``): the fsdp ranks of a data line
+  see the same samples; each holds the fp32 masters and AdamW moments of its
+  dim-0 rows of every split tensor (``parallel.mesh.fsdp_rows``) and the
+  replicated ones whole.  The split tensors' gradients are reduce-scattered
+  over the fsdp line (one rank-major flat buffer), summed over the replica
+  plane and divided by the world size; each rank updates its rows, casts
+  them to the working type and all-gathers them into the model's tensors,
+  so every rank holds the whole working weights.
 
 Mixed precision: the model holds the trainable tensors in its working type
 (bf16) and :class:`TrainState` keeps fp32 masters that the optimizer
 updates and copies back.  Gradients are taken on the bf16 copies and cast
 to fp32 before the clip, which is numerically what flax does with fp32
 params under ``dtype=bf16``.  In an fp32 model the masters are the model's
-own tensors.
+own tensors, but for a split tensor's rows, which are a tensor of their own.
 """
 
 from __future__ import annotations
@@ -61,6 +69,7 @@ import functools
 from typing import Callable, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
@@ -69,8 +78,8 @@ from torch.utils.checkpoint import (
 
 from synfmc_tpu_torch.diffusion.scheduler import DiffusionSchedule
 from synfmc_tpu_torch.geometry.plucker import plucker_embedding
-from synfmc_tpu_torch.parallel.collectives import all_reduce_
-from synfmc_tpu_torch.parallel.mesh import shard
+from synfmc_tpu_torch.parallel.collectives import all_gather_into_, all_reduce_, reduce_scatter_
+from synfmc_tpu_torch.parallel.mesh import FsdpShards, shard
 from synfmc_tpu_torch.training.losses import appearance_debias_loss, masked_diffusion_loss, mse
 from synfmc_tpu_torch.utils.traj_features import build_adapter_inputs
 
@@ -413,53 +422,96 @@ def make_obj_grads_fn(unet, pose_encoder, adapter, vae, text_encoder,
 @dataclasses.dataclass
 class TrainState:
     step: int
-    trainable: dict        # name -> model tensor (the working copy)
-    masters: dict          # name -> fp32 master (the same tensor in an fp32 model)
+    trainable: dict        # name -> model tensor (the working copy, whole on every rank)
+    masters: dict          # name -> fp32 master (the same tensor in an fp32 model), or its
+                           # rows under fsdp (a tensor of their own)
     optimizer: object      # optim.ClipAdamW over the masters
+    shards: Optional[FsdpShards] = None  # the ZeRO-1 layout (mesh.fsdp > 1)
 
 
-def init_train_state(trainable: dict, tx: Callable,
-                     masters: Optional[dict] = None) -> TrainState:
+def init_train_state(trainable: dict, tx: Callable, masters: Optional[dict] = None,
+                     mesh=None) -> TrainState:
     """``tx``: optim.make_optimizer's factory.  ``masters`` (fp32, by name)
     defaults to fp32 copies of the trainable tensors, or those tensors
-    themselves when they are fp32 already."""
+    themselves when they are fp32 already.  On a ``mesh`` with fsdp > 1 a
+    split tensor's master is this rank's rows, copied (``FsdpShards``)."""
     if masters is None:
         masters = {n: p if p.dtype == torch.float32 else p.detach().float().clone()
                    for n, p in trainable.items()}
-    return TrainState(step=0, trainable=trainable, masters=masters,
-                      optimizer=tx([masters[n] for n in trainable]))
+    shards = None
+    if mesh is not None and mesh.count("fsdp") > 1:
+        shards = FsdpShards(mesh, {n: p.shape for n, p in trainable.items()})
+        masters = {n: m if shards.rows[n] is None else shards.take(n, m).detach().float().clone()
+                   for n, m in masters.items()}
+    params = [masters[n] for n in trainable]
+    kw = {} if shards is None else {"split": [shards.rows[n] is not None for n in trainable],
+                                    "norm_group": shards.axis.group}
+    return TrainState(step=0, trainable=trainable, masters=masters, optimizer=tx(params, **kw),
+                      shards=shards)
+
+
+def state_nbytes(state: TrainState) -> int:
+    """The bytes of this rank's fp32 masters and both AdamW moments."""
+    return 3 * sum(m.numel() * m.element_size() for m in state.masters.values())
 
 
 @torch.no_grad()
 def apply_grads(state: TrainState, grads: dict) -> TrainState:
-    """Clip + AdamW on the fp32 masters, then copy them into the model."""
+    """Clip + AdamW on the fp32 masters, then copy them into the model;
+    under fsdp the updated rows are cast to the working type (one for the
+    whole model) and all-gathered into it."""
     state.optimizer.step([grads[n].float() for n in state.trainable])
+    shards = state.shards
+    if shards is not None and shards.names:
+        dtype = state.trainable[shards.names[0]].dtype
+        send = torch.cat([state.masters[n].reshape(-1).to(dtype) for n in shards.names])
+        recv = send.new_empty(shards.axis.size * shards.part)
+        all_gather_into_(recv, send, shards.axis.group)
+        shards.unpack_into(recv, state.trainable)
     for n, p in state.trainable.items():
         master = state.masters[n]
         if master is not p:
-            p.copy_(master)
+            if shards is None or shards.rows[n] is None:
+                p.copy_(master)
             master.grad = None
     state.step += 1
     return state
 
 
-def average_over(grads: dict, metrics: dict, group) -> tuple[dict, dict]:
-    """Gradients and metrics averaged over ``group`` in fp32 (one
-    collective); as they are without a group (or a group of one)."""
+def average_over(grads: dict, metrics: dict, group,
+                 shards: Optional[FsdpShards] = None) -> tuple[dict, dict]:
+    """Gradients and metrics averaged over ``group`` (every rank) in fp32;
+    as they are without a group (or a group of one).  With ``shards`` a split
+    tensor's gradient comes back as this rank's rows: reduce-scattered over
+    the fsdp line, summed over the replica plane, divided by the world size;
+    the replicated ones and the metrics in one all-reduce."""
     if group is None:
         return grads, metrics
-    grads = {n: g.float() for n, g in grads.items()}
     metrics = {k: v.float() for k, v in metrics.items()}
-    all_reduce_(list(grads.values()) + list(metrics.values()), group)
-    return grads, metrics
+    if shards is None or not shards.names:
+        grads = {n: g.float() for n, g in grads.items()}
+        all_reduce_(list(grads.values()) + list(metrics.values()), group)
+        return grads, metrics
+    flat = shards.pack(grads, torch.float32)
+    part = flat.new_empty(shards.part)
+    reduce_scatter_(part, flat, shards.axis.group)
+    del flat
+    all_reduce_([part], shards.plane.group, average=False)  # no-op on a plane of one
+    part.div_(dist.get_world_size(group))
+    rest = {n: grads[n].float() for n in grads if shards.rows[n] is None}
+    all_reduce_(list(rest.values()) + list(metrics.values()), group)
+    mine = shards.split(part)
+    return {n: mine[n] if n in mine else rest[n] for n in grads}, metrics
 
 
 def step_from_grads(grads_fn: Callable, group=None) -> Callable:
     """grads_fn -> ``step_fn(state, batch, draws) -> (state, metrics)``;
-    ``group``: the ranks the gradients average over (module docstring)."""
+    ``group``: the ranks the gradients average over (module docstring), in
+    the layout of ``state.shards``."""
 
     def step_fn(state: TrainState, batch: dict, draws):
-        grads, metrics = average_over(*grads_fn(state.trainable, batch, draws), group)
+        grads, metrics = average_over(*grads_fn(state.trainable, batch, draws), group,
+                                      state.shards)
         return apply_grads(state, grads), metrics
 
     return step_fn
@@ -494,7 +546,7 @@ def make_accumulating_step(grads_fn: Callable, accum_steps: int, group=None) -> 
         inv = 1.0 / accum_steps
         grads = {n: g.mul_(inv) for n, g in acc.items()}
         metrics = {k: v.mul_(inv) for k, v in macc.items()}
-        grads, metrics = average_over(grads, metrics, group)
+        grads, metrics = average_over(grads, metrics, group, state.shards)
         return apply_grads(state, grads), metrics
 
     return step_fn

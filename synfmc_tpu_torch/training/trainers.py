@@ -41,19 +41,31 @@ asked for.
 ``batches`` (an iterable of collated raw batches) replaces the dataset and
 its loader, for runs on synthetic data; everything else stays the same.
 
-``mesh: {data, sp}`` (one process a GPU under ``python -m
+``mesh: {data, fsdp, sp}`` (one process a GPU under ``python -m
 torch.distributed.run``, ``parallel.mesh.init_distributed`` called first;
-the world size must be data x sp): each ``data`` rank loads its stride
-slice of the global order (dataset seed ``global_seed`` + its data index,
-loader seed ``global_seed``) at ``train_batch_size`` a rank, the ``sp``
-ranks of a data line the same samples; the steps run as ``training/
-steps.py`` says (global draws, frame-parallel UNet, gradients averaged
-once a step).  Rank 0 alone logs to the console and makes the sanity dump,
-the validation renders, the profile and the checkpoint files; the other
-ranks wait at a barrier meanwhile, and log to ``log.txt.rank{N}``.  A stop
-signal on any rank stops every rank at the same step (``sync_stop_flag``
-every step).  Every rank resumes from the same ``state.pt``.  ``mesh.fsdp``
-> 1 raises NotImplementedError.
+the world size must be data x fsdp x sp): each ``data`` rank loads its
+stride slice of the global order (dataset seed ``global_seed`` + its data
+index, loader seed ``global_seed``) at ``train_batch_size`` a rank, the
+``fsdp`` and ``sp`` ranks of a data line the same samples; the steps run as
+``training/steps.py`` says (global draws, frame-parallel UNet, gradients
+averaged once a step; under fsdp > 1 each rank keeps the fp32 masters and
+AdamW moments of its rows of the split tensors, ZeRO-1).  Rank 0 alone logs
+to the console and makes the sanity dump, the validation renders, the
+profile and the checkpoint files; the other ranks wait at a barrier
+meanwhile, and log to ``log.txt.rank{N}``.  A checkpoint's state is
+assembled first on every rank, in the loop thread (under fsdp a collective
+gather of the shards), then rank 0 writes it.  A stop signal on any rank
+stops every rank at the same step (``sync_stop_flag`` every step).  Every
+rank resumes from the same ``state.pt``, which holds whole tensors whatever
+the layout: a run may resume under another fsdp size.
+
+``ckpt_device_snapshot`` (``auto``, ``always`` or ``never``; under
+``async_checkpointing`` only, synfmc_tpu/training/trainers.py:748-759): a
+periodic checkpoint takes a device-side snapshot of the state and rank 0's
+writer thread copies it to the host on a CUDA stream of its own, into
+pinned memory kept from one checkpoint to the next; ``auto``
+takes it where it fits beside the step's peak (``snapshot_fits_on_device``;
+never on the CPU), else the loop copies the state to the host itself.
 """
 
 from __future__ import annotations
@@ -80,8 +92,10 @@ from synfmc_tpu_torch.parallel.mesh import (
     barrier,
     broadcast_object,
     fetch_to_host,
+    gather_shards,
     sync_stop_flag,
     training_mesh,
+    tree_nbytes,
 )
 from synfmc_tpu_torch.pipelines.factory import STAGES, cast_models_, init_models
 from synfmc_tpu_torch.training import checkpoint as ckpt
@@ -95,7 +109,13 @@ from synfmc_tpu_torch.training.params import (
     stage3_mm_trainable,
     stage3_unet_trainable,
 )
-from synfmc_tpu_torch.training.pipeline_io import AsyncCheckpointWriter, ThreadPrefetcher
+from synfmc_tpu_torch.training.pipeline_io import (
+    AsyncCheckpointWriter,
+    PinnedCopier,
+    ThreadPrefetcher,
+    snapshot_fits_on_device,
+    snapshot_on_device,
+)
 from synfmc_tpu_torch.training.pretrained import load_pretrained, validate_pretrained_paths
 from synfmc_tpu_torch.training.steps import (
     StepConfig,
@@ -109,6 +129,7 @@ from synfmc_tpu_torch.training.steps import (
     make_cam_grads_fn,
     make_lora_grads_fn,
     make_obj_grads_fn,
+    state_nbytes,
     step_from_grads,
 )
 from synfmc_tpu_torch.training.validation import run_validation
@@ -118,18 +139,24 @@ from synfmc_tpu_torch.utils.video import save_image_grid, save_videos_grid
 
 def mesh_from_config(config: dict):
     """The config's ``mesh: {data, fsdp, sp}`` as a ``parallel.mesh`` training
-    mesh; ``fsdp`` > 1 raises NotImplementedError."""
+    mesh (a world size other than data x fsdp x sp raises)."""
     spec = dict(config.get("mesh") or {})
     unknown = set(spec) - set(TRAIN_AXES)
     if unknown:
         raise ValueError(f"mesh: unknown axes {sorted(unknown)} (want {TRAIN_AXES})")
-    sizes = {a: int(spec.get(a) or 1) for a in TRAIN_AXES}
-    if sizes["fsdp"] > 1:
-        raise NotImplementedError(
-            f"mesh.fsdp={sizes['fsdp']}: ZeRO-1 sharding of the fp32 masters and the AdamW "
-            f"moments (and the sharded checkpoint's assembly) is the next slice of the port "
-            f"(ROADMAP.md); use mesh.data and mesh.sp")
-    return training_mesh(**sizes)
+    return training_mesh(**{a: int(spec.get(a) or 1) for a in TRAIN_AXES})
+
+
+SNAPSHOT_MODES = ("auto", "always", "never")
+
+
+def snapshot_mode(config: dict) -> str:
+    """The config's ``ckpt_device_snapshot`` (default ``auto``); another
+    value raises."""
+    mode = str(config.get("ckpt_device_snapshot", "auto"))
+    if mode not in SNAPSHOT_MODES:
+        raise ValueError(f"ckpt_device_snapshot: {mode!r} (want one of {SNAPSHOT_MODES})")
+    return mode
 
 
 def step_config(config: dict, stage: str) -> StepConfig:
@@ -187,36 +214,42 @@ def checksum(params) -> float:
     return float(sum(p.detach().double().abs().sum() for p in params))
 
 
-def host_state(state: TrainState, epoch: int) -> dict:
-    """What a resumable checkpoint holds, copied to the CPU: the step, the
-    epoch, the fp32 masters, and the AdamW moments and update count."""
+def state_tree(state: TrainState, epoch: int) -> dict:
+    """What a resumable checkpoint holds, on the device: the step, the
+    epoch, the fp32 masters, and the AdamW moments and update count; under
+    fsdp a split tensor's masters and moments are this rank's ``Shard``."""
     names = list(state.trainable)
     exp_avg, exp_avg_sq = state.optimizer.moments()
+    wrap = state.shards.wrap if state.shards is not None else dict
     return {"step": state.step, "epoch": epoch, "count": state.optimizer.count,
-            **fetch_to_host({"masters": {n: state.masters[n] for n in names},
-                             "exp_avg": dict(zip(names, exp_avg)),
-                             "exp_avg_sq": dict(zip(names, exp_avg_sq))})}
+            "masters": wrap({n: state.masters[n] for n in names}),
+            "exp_avg": wrap(dict(zip(names, exp_avg))),
+            "exp_avg_sq": wrap(dict(zip(names, exp_avg_sq)))}
 
 
 @torch.no_grad()
 def restore_state(state: TrainState, saved: dict) -> TrainState:
-    """Load ``host_state``'s record into ``state``: the masters, then the
-    working weights re-cast from them as ``steps.apply_grads`` does, the
+    """Load a checkpoint's whole tensors into ``state``: the masters (this
+    rank's rows of a split tensor's under fsdp), then the working weights
+    re-cast from the whole masters as ``steps.apply_grads`` gives them, the
     moments and the counts."""
     names = list(state.trainable)
     if set(saved["masters"]) != set(names):
         raise ValueError(f"checkpoint holds {len(saved['masters'])} trainable tensors, the "
                          f"model {len(names)}: {sorted(set(saved['masters']) ^ set(names))[:5]}")
+    shards = state.shards
+    take = (lambda n, t: t) if shards is None else shards.take
     for n in names:
-        src, master = saved["masters"][n], state.masters[n]
-        if src.shape != master.shape:
-            raise ValueError(f"checkpoint {n}: shape {tuple(src.shape)} vs "
-                             f"{tuple(master.shape)}")
-        master.copy_(src)
-        if master is not state.trainable[n]:
-            state.trainable[n].copy_(master)
-    state.optimizer.load_moments(int(saved["count"]), [saved["exp_avg"][n] for n in names],
-                                 [saved["exp_avg_sq"][n] for n in names])
+        src, p = saved["masters"][n], state.trainable[n]
+        if src.shape != p.shape:
+            raise ValueError(f"checkpoint {n}: shape {tuple(src.shape)} vs {tuple(p.shape)}")
+        master = state.masters[n]
+        master.copy_(take(n, src))
+        if master is not p:
+            p.copy_(src)
+    state.optimizer.load_moments(int(saved["count"]),
+                                 [take(n, saved["exp_avg"][n]) for n in names],
+                                 [take(n, saved["exp_avg_sq"][n]) for n in names])
     state.step = int(saved["step"])
     return state
 
@@ -358,9 +391,12 @@ def train(stage: str, config, batches: Optional[Iterable[dict]] = None,
     ``run_dir``, ``preempted`` after a signal, ``loss_history`` with
     ``record_loss_history``, and for measurement: the per-step losses,
     seconds and data waits, the seconds from the call to the end of the
-    first step, the checkpoints' seconds and bytes, each kernel's launches
-    over the steps, the peak device memory of the steps, the validation
-    renders (step, seconds, files, launches, peak), the trainable and frozen
+    first step, the checkpoints' path (snapshot or host copy), seconds in the
+    loop (the gather's among them), writer seconds and bytes, the steps whose
+    checkpoint this rank assembled, this rank's bytes of fp32 masters and
+    AdamW moments, each kernel's launches over the steps, the peak device
+    memory of the steps, the validation renders (step, seconds, files,
+    launches, peak), the trainable and frozen
     parameter counts, and checksums (sum of |w|) of the trainable and frozen
     weights before and after training.
     """
@@ -369,6 +405,7 @@ def train(stage: str, config, batches: Optional[Iterable[dict]] = None,
         raise ValueError(f"unknown stage {stage!r} (want one of {STAGES})")
     config = load_config(config)
     config_notes = validate_config(config, stage)
+    snapshot_mode(config)
     mesh = mesh_from_config(config)
     dev = resolve_device(device)
 
@@ -454,7 +491,8 @@ def _run(stage, config, batches, max_steps, dev, seed, on_step, run_dir, logger,
         lr_warmup_steps=int(config.get("lr_warmup_steps", 0)),
         max_train_steps=max_steps,
     )
-    state = init_train_state(trainable, tx, masters)
+    state = init_train_state(trainable, tx, masters, mesh=mesh)
+    del masters  # a split tensor's master is a copy of this rank's rows
     sp = mesh.axis("sp")
     if stage == "lora":
         if sp.size > 1:
@@ -476,6 +514,11 @@ def _run(stage, config, batches, max_steps, dev, seed, on_step, run_dir, logger,
     logger.info(f"dtype={dtype} trainable params: {n_train / 1e6:.2f}M; "
                 f"frozen: {n_frozen / 1e6:.2f}M; accumulation {accum}; remat "
                 f"{cfg.remat_policy if cfg.remat else 'off'}")
+    n_state = state_nbytes(state)
+    logger.info(f"fp32 masters and AdamW moments on this rank: {n_state} bytes"
+                + ("" if state.shards is None else
+                   f" ({len(state.shards.names)} of {len(trainable)} tensors split over "
+                   f"fsdp={mesh.count('fsdp')})"))
 
     ckpt_steps = int(config.get("checkpointing_steps", -1))
     ckpt_epochs = int(config.get("checkpointing_epochs", -1))
@@ -541,25 +584,56 @@ def _run(stage, config, batches, max_steps, dev, seed, on_step, run_dir, logger,
     if prefetch_depth > 0:
         source = prefetcher = ThreadPrefetcher(source, depth=prefetch_depth)
     async_ckpt = bool(config.get("async_checkpointing", True))
+    snap_mode = snapshot_mode(config)
     writer = AsyncCheckpointWriter()
+    copier = PinnedCopier(dev)
     checkpoints: list[dict] = []
+    assembled: list[int] = []  # the steps whose state this rank assembled
 
     def checkpoint(step_epoch: int, wait: bool) -> None:
-        """Rank 0 writes; with ``wait`` every rank leaves once the files exist."""
+        """Every rank assembles the state here, in the loop thread, before the
+        next step changes it (under fsdp the gather is a collective, which a
+        writer thread could reach in another order on each rank); rank 0
+        then writes it, on the writer thread unless ``wait``, when every rank
+        leaves once the files exist.  The loop's part is a device snapshot
+        that the writer copies to the host (``ckpt_device_snapshot``, async
+        only) or a blocking host copy."""
+        t0 = time.perf_counter()
+        tree = state_tree(state, step_epoch)
+        snapshot = mesh.is_main and not wait and (
+            snap_mode == "always" or (snap_mode == "auto" and snapshot_fits_on_device(
+                tree_nbytes(tree), device=dev)))
+        if snapshot:
+            tree = snapshot_on_device(tree)
+        t1 = time.perf_counter()
+        tree = gather_shards(tree)
+        gather_s = time.perf_counter() - t1
+        assembled.append(state.step)
         if not mesh.is_main:
             if wait:
                 barrier()
             return
-        t0 = time.perf_counter()
-        saved = host_state(state, step_epoch)  # before the next step changes the state
-        copy_s = time.perf_counter() - t0
+        ready = None
+        if not snapshot:
+            tree = fetch_to_host(tree)
+        elif copier.stream is not None:  # the writer's stream waits for the snapshot
+            ready = torch.cuda.Event()
+            ready.record()
+        loop_s = time.perf_counter() - t0
+        path = "snapshot" if snapshot else "host copy"
 
         def write():
-            checkpoints.append({**save_checkpoints(run_dir, saved, config, stage),
-                                "copy_s": copy_s})
+            t = time.perf_counter()
+            saved = copier(tree, ready) if snapshot else tree
+            writer_copy_s = time.perf_counter() - t
+            checkpoints.append({**save_checkpoints(run_dir, saved, config, stage), "path": path,
+                                "copy_s": loop_s, "gather_s": gather_s,
+                                "writer_copy_s": writer_copy_s})
             c = checkpoints[-1]
-            logger.info(f"checkpoint step {c['step']}: host copy {c['copy_s']:.3f}s, write "
-                        f"{c['write_s']:.3f}s, {c['bytes']} bytes")
+            logger.info(f"checkpoint step {c['step']}: {path}, {loop_s:.3f}s in the loop "
+                        f"(gather {gather_s:.3f}s)"
+                        + (f", host copy {writer_copy_s:.3f}s in the writer" if snapshot else "")
+                        + f", write {c['write_s']:.3f}s, {c['bytes']} bytes")
 
         if wait:
             write()
@@ -695,8 +769,8 @@ def _run(stage, config, batches, max_steps, dev, seed, on_step, run_dir, logger,
         metrics_out["loss_history"] = list(losses)
     metrics_out.update(
         losses=losses, step_s=step_s, data_s=data_s, first_step_s=first_step_s,
-        checkpoints=checkpoints, launches=launches, validations=validations,
-        peak_gib=peak / 2**30 if cuda else None,
+        checkpoints=checkpoints, assembled=assembled, launches=launches,
+        validations=validations, peak_gib=peak / 2**30 if cuda else None, state_bytes=n_state,
         trainable_params=n_train, frozen_params=n_frozen, checksums=checksums)
     return metrics_out
 

@@ -223,10 +223,12 @@ def cam_steps(cfg: dict, states: dict, step_cfg: dict, batches: list, draws: lis
     """Stage-2 steps on a training mesh of ``mesh_sizes``: each of
     ``batches`` / ``draws`` (numpy dicts) is a GLOBAL batch and its draws, of
     which this rank takes its part (``accum`` of them a step).  Returns the
-    first step's averaged gradients and metrics, then the fp32 masters and
-    their checksum after each step."""
+    first step's averaged gradients and metrics, then the fp32 masters (whole:
+    under fsdp gathered from the ranks' rows) and their checksum after each
+    step, the working weights' checksum after each step, and this rank's own
+    masters and moments at the end with the rows it owns and their bytes."""
     from synfmc_tpu_torch.diffusion.scheduler import DiffusionSchedule
-    from synfmc_tpu_torch.parallel.mesh import shard, training_mesh
+    from synfmc_tpu_torch.parallel.mesh import gather_shards, shard, training_mesh
     from synfmc_tpu_torch.training.optim import make_optimizer
     from synfmc_tpu_torch.training.steps import (
         CamDraws,
@@ -235,6 +237,7 @@ def cam_steps(cfg: dict, states: dict, step_cfg: dict, batches: list, draws: lis
         init_train_state,
         make_accumulating_step,
         make_cam_grads_fn,
+        state_nbytes,
         step_from_grads,
     )
     from synfmc_tpu_torch.training.trainers import checksum
@@ -261,10 +264,15 @@ def cam_steps(cfg: dict, states: dict, step_cfg: dict, batches: list, draws: lis
         return out, d
 
     parts = [local(b, d) for b, d in zip(batches, draws)]
-    g, m = average_over(*grads_fn(trainable, *parts[0]), mesh.world_group)
-    res = {"grads": {n: numpy(v) for n, v in g.items()},
-           "metrics": {k: float(v) for k, v in m.items()}, "masters": [], "checksums": []}
-    state = init_train_state(trainable, make_optimizer(lr))
+    state = init_train_state(trainable, make_optimizer(lr), mesh=mesh)
+    whole = gather_shards if state.shards is None else (
+        lambda d: gather_shards(state.shards.wrap(d)))
+    # before the first update AdamW holds no moments: zeros of this rank's shapes
+    before = whole(dict(zip(state.trainable, state.optimizer.moments()[1])))
+    g, m = average_over(*grads_fn(trainable, *parts[0]), mesh.world_group, state.shards)
+    res = {"grads": {n: numpy(v) for n, v in whole(g).items()},
+           "metrics": {k: float(v) for k, v in m.items()}, "masters": [], "checksums": [],
+           "working": [], "moments_before": {n: tuple(v.shape) for n, v in before.items()}}
     step_fn = (make_accumulating_step(grads_fn, accum, mesh.world_group) if accum > 1
                else step_from_grads(grads_fn, mesh.world_group))
     for i in range(0, len(parts), accum):
@@ -273,10 +281,21 @@ def cam_steps(cfg: dict, states: dict, step_cfg: dict, batches: list, draws: lis
             state, metrics = step_fn(state, [p[0] for p in group], [p[1] for p in group])
         else:
             state, metrics = step_fn(state, *group[0])
-        res["masters"].append({n: p.detach().cpu().numpy().copy()
-                               for n, p in state.masters.items()})
-        res["checksums"].append(checksum(state.masters.values()))
+        masters = whole(state.masters)
+        res["masters"].append({n: p.detach().cpu().numpy().copy() for n, p in masters.items()})
+        res["checksums"].append(checksum(masters.values()))
+        res["working"].append(checksum(state.trainable.values()))
         res.setdefault("losses", []).append(float(metrics["loss"]))
+    exp_avg, exp_avg_sq = state.optimizer.moments()
+    names = list(state.trainable)
+    rows = (state.shards.rows if state.shards is not None else dict.fromkeys(names))
+    res["own"] = {"masters": {n: numpy(state.masters[n]) for n in names},
+                  "exp_avg": dict(zip(names, map(numpy, exp_avg))),
+                  "exp_avg_sq": dict(zip(names, map(numpy, exp_avg_sq))),
+                  "rows": {n: None if r is None else (r.start, r.stop) for n, r in rows.items()},
+                  "bytes": state_nbytes(state)}
+    res["moments"] = {k: {n: numpy(v) for n, v in whole(dict(zip(names, t))).items()}
+                      for k, t in (("exp_avg", exp_avg), ("exp_avg_sq", exp_avg_sq))}
     return res
 
 
@@ -305,5 +324,6 @@ def run_train(cfg: dict, max_steps: int, sigterm_rank_at=None) -> dict:
             os.kill(os.getpid(), signal.SIGTERM)
 
     out = train("cam", cfg, max_steps=max_steps, device="cpu", on_step=on_step)
-    keep = ("steps", "run_dir", "preempted", "losses", "checksums", "loss_history")
+    keep = ("steps", "run_dir", "preempted", "losses", "checksums", "loss_history", "assembled",
+            "state_bytes")
     return {k: out.get(k) for k in keep}

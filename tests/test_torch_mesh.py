@@ -1,5 +1,6 @@
 """The port's mesh on the CPU (4 ranks in one gloo group): the rank layout
 against the JAX package's create_mesh / create_serving_mesh device order,
+the fsdp sharding rule against the JAX package's shard_over_fsdp,
 the frame <-> row exchange and its backward against the plain permutes, the
 loader's per-rank shards against the JAX loader's, the collective stop flag,
 and one ``python -m torch.distributed.run --nproc-per-node 2`` run of
@@ -18,9 +19,11 @@ import torch
 import yaml
 
 from synfmc_tpu.data.loader import ShardedLoader as JaxLoader
-from synfmc_tpu.parallel.mesh import create_mesh, create_serving_mesh
+from jax.sharding import PartitionSpec
+from synfmc_tpu.parallel.mesh import create_mesh, create_serving_mesh, shard_over_fsdp
 from synfmc_tpu_torch.data.loader import ShardedLoader
 from synfmc_tpu_torch.parallel.collectives import row_splits
+from synfmc_tpu_torch.parallel.mesh import fsdp_rows
 from synfmc_tpu_torch.scripts import generate
 from tests._torch_mesh import RankPool
 from tests.test_torch_slice import tiny_config
@@ -53,6 +56,35 @@ def test_rank_layout_matches_the_jax_device_order(ranks, sizes):
         for i, name in enumerate(mesh.axis_names):
             line = ids[tuple(slice(None) if j == i else where[j] for j in range(len(where)))]
             assert got[name] == (where[i], tuple(int(d) for d in line)), (r, name)
+
+
+# named shapes: a conv weight, a Dense weight and a vector that split; a dim 0
+# that 2 divides and 4 does not; tensors under 1024 elements; a scalar
+RULE_SHAPES = {"conv": (320, 320, 3, 3), "dense": (1280, 320), "long_bias": (2048,),
+               "odd_rows": (6, 640), "bias": (320,), "small": (16, 63), "one_row": (1, 4096),
+               "scalar": ()}
+
+
+@pytest.mark.parametrize("fsdp", [2, 4])
+def test_fsdp_rows_follow_shard_over_fsdp(fsdp):
+    """fsdp_rows, a pure function of the names and shapes, splits exactly the
+    tensors that the JAX package's shard_over_fsdp puts on P('fsdp') (given
+    the same shapes), and the ranks' rows of each tile its dim 0 in order."""
+    mesh = create_mesh(1, fsdp, 1, devices=jax.devices()[:fsdp])
+    placed = shard_over_fsdp({n: np.zeros(s, np.float32) for n, s in RULE_SHAPES.items()}, mesh)
+    want = {n: x.sharding.spec == PartitionSpec("fsdp") for n, x in placed.items()}
+    assert want["conv"] and want["dense"] and not want["bias"] and not want["small"]
+    assert want["odd_rows"] == (fsdp == 2)
+    ranks = [fsdp_rows(RULE_SHAPES, fsdp, i) for i in range(fsdp)]
+    for n, shape in RULE_SHAPES.items():
+        assert (ranks[0][n] is not None) == want[n], n
+        if want[n]:
+            rows = [np.arange(shape[0])[r[n]] for r in ranks]
+            assert len({len(x) for x in rows}) == 1
+            np.testing.assert_array_equal(np.concatenate(rows), np.arange(shape[0]))
+        else:
+            assert all(r[n] is None for r in ranks), n
+    assert fsdp_rows(RULE_SHAPES, 1, 0) == dict.fromkeys(RULE_SHAPES)
 
 
 @pytest.mark.parametrize("shape", [(1, 4, 3, 8, 6), (2, 8, 2, 5, 4)])

@@ -6,8 +6,11 @@ weights, batch and JAX-derived draws go through
 - the JAX package's grads function on the concatenated batch (compiled in a
   thread while the ranks run; test_torch_train.py's tolerances);
 - the port's single-process step (``training_mesh()`` of one rank);
-- the port on ``mesh: {data: 2}`` (a sample a rank) and ``{sp: 2}`` (a frame
-  a rank, the motion module's exchange in the forward and the backward).
+- the port on ``mesh: {data: 2}`` (a sample a rank), ``{sp: 2}`` (a frame
+  a rank, the motion module's exchange in the forward and the backward),
+  ``{fsdp: 2}`` (ZeRO-1: each rank the masters and moments of its dim-0 rows,
+  gradients reduce-scattered, the working weights all-gathered) and, on 4
+  ranks, ``{fsdp: 2, sp: 2}``.
 The port's runs are float64, so that the mesh is held to the single process
 at 1e-5 of each gradient's largest magnitude plus 1e-3 relative (in fp32 the
 ranks' other GEMM shapes alone move the sums by more; the attention's plain
@@ -18,7 +21,10 @@ turns a rounding-sized difference of a near-zero gradient into up to lr);
 the replicas' masters and checksums equal bit for bit after every step.  Then the trainer itself on a fixture
 dataset over ``data: 2``: a SIGTERM on rank 1 stops both ranks at the same
 step, rank 0 alone writes the checkpoints, the ranks resume from them
-exactly, and each rank logs to its own file.
+exactly, and each rank logs to its own file; and over ``fsdp: 2``: a SIGTERM
+on rank 1 stops both ranks with one gather of the shards, whose ``state.pt``
+matches a one-process run's, resumes in one process, and one written in one
+process resumes under fsdp.
 """
 
 import concurrent.futures
@@ -55,7 +61,8 @@ CFG = dict(cfg_random_null_text_ratio=0.5, background_caption_prob=1.0, apply_ma
            invert_loss_mask=True, mask_loss_weight=1.0, sd_loss_weight=0.6,
            appearance_debias=0.5, sample_height=H, sample_width=W)
 KEY_SEEDS = (22, 5)  # 22: sample 0's camera and sample 1's text dropped (test_torch_train.py)
-MESHES = {"data": {"data": 2}, "sp": {"sp": 2}}
+MESHES = {"data": {"data": 2}, "sp": {"sp": 2}, "fsdp": {"fsdp": 2}}
+MESHES4 = {"fsdp+sp": {"fsdp": 2, "sp": 2}}  # on a pool of 4 ranks
 
 
 def _batch(seed):
@@ -163,14 +170,19 @@ def ranks():
 
 
 @pytest.fixture(scope="module")
-def trainer_runs(case, ranks, tmp_path_factory):
-    """On data = 2, from a 3-sequence fixture (the ranks' shards cut to one
-    sample each): 4 steps; 4 steps with a SIGTERM on rank 1 after step 2;
+def fixture(tmp_path_factory):
+    """A 3-sequence dataset (on data = 2 the ranks' shards are cut to one
+    sample each)."""
+    root = tmp_path_factory.mktemp("mesh_data")
+    return build_synthetic_dataset(str(root), num_seqs=3, num_objects=2, num_frames=48)
+
+
+@pytest.fixture(scope="module")
+def trainer_runs(case, ranks, fixture, tmp_path_factory):
+    """On data = 2: 4 steps; 4 steps with a SIGTERM on rank 1 after step 2;
     then resume_from: auto to 4.  (``case`` first: its JAX program compiles
     meanwhile.)"""
     root = tmp_path_factory.mktemp("mesh_train")
-    fixture = build_synthetic_dataset(str(root / "data"), num_seqs=3, num_objects=2,
-                                      num_frames=48)
     cfg = lambda out, **kw: trainer_config(fixture, root / out, mesh={"data": 2},
                                            checkpointing_steps=2, num_workers=1,
                                            prefetch_batches=0, **kw)
@@ -189,10 +201,11 @@ def test_sigterm_on_one_rank_stops_both_at_the_same_step(trainer_runs):
 
 def test_rank0_checkpoints_resume_exactly(trainer_runs):
     full, stopped, resumed = (trainer_runs[k] for k in ("full", "stopped", "resumed"))
-    # the resumed run writes into the same directory (the same minute's name);
-    # a rank other than 0 that wrote would have raised (checkpoint.save_native)
-    ckpts = sorted(os.path.basename(p) for p in glob.glob(
-        os.path.join(stopped[0]["run_dir"], "checkpoints", "*")))
+    # the resumed run writes into the same directory when it starts in the same
+    # minute (the directory's name), else into the next minute's; a rank other
+    # than 0 that wrote would have raised (checkpoint.save_native)
+    ckpts = sorted(os.path.basename(p) for d in {stopped[0]["run_dir"], resumed[0]["run_dir"]}
+                   for p in glob.glob(os.path.join(d, "checkpoints", "*")))
     assert ckpts == ["cmcm-step-2.ckpt", "cmcm-step-4.ckpt", "step-2", "step-4"], ckpts
     for r in range(2):
         assert resumed[r]["steps"] == 4
@@ -211,6 +224,107 @@ def test_each_rank_logs_to_its_own_file(trainer_runs):
     for name in logs:
         with open(os.path.join(run_dir, name)) as fh:
             assert "step 4/4" in fh.read()
+
+
+def _one_process(fn, *args, **kw):
+    """``fn`` at one torch thread, as a rank runs."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return fn(*args, **kw)
+    finally:
+        torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module")
+def fsdp_trainer_runs(case, ranks, fixture, tmp_path_factory):
+    """On fsdp = 2 against one process (one torch thread, as a rank): one
+    process 4 steps, checkpoints at 2 and 4; fsdp 4 steps with a SIGTERM on
+    rank 1 after step 2 (the final save's gather at step 2); one process
+    from that checkpoint to 4; fsdp from the one process's step 2 to 4
+    (the periodic checkpoint's gather at step 4)."""
+    root = tmp_path_factory.mktemp("fsdp_train")
+    cfg = lambda out, **kw: trainer_config(fixture, root / out, num_workers=1, prefetch_batches=0,
+                                           **kw)
+    step2 = lambda r: os.path.join(r["run_dir"], "checkpoints", "step-2")
+    runs = {"one": _one_process(train, "cam", cfg("one", checkpointing_steps=2), max_steps=4,
+                                device="cpu")}
+    runs["stopped"] = ranks.run("tests._torch_mesh:run_train",
+                                cfg("stopped", mesh={"fsdp": 2}, checkpointing_steps=100), 4,
+                                (1, 2))
+    runs["one_from_fsdp"] = _one_process(
+        train, "cam", cfg("one_from_fsdp", checkpointing_steps=2,
+                          resume_from=step2(runs["stopped"][0])), max_steps=4, device="cpu")
+    runs["fsdp_from_one"] = ranks.run(
+        "tests._torch_mesh:run_train",
+        cfg("fsdp_from_one", mesh={"fsdp": 2}, checkpointing_steps=2,
+            resume_from=step2(runs["one"])), 4)
+    runs["lr"] = float(cfg("x")["learning_rate"])
+    return runs
+
+
+def _native(run: dict, step: int) -> dict:
+    return ckpt.restore_native(os.path.join(run["run_dir"], "checkpoints", f"step-{step}"))
+
+
+# The trainer runs in fp32: after an update the two layouts' clip norms differ
+# in their last bits, and a tensor whose gradient is near zero throughout (the
+# pose encoder's attention at ~2e-8) then moves by up to ~1.3e-5 of its own
+# largest moment within two more steps; the float64 runs above hold 1e-5.
+STATE_REL = 1e-4
+
+
+def _state_close(got: dict, want: dict, lr: float):
+    """Two state.pt records: the counts equal, the masters within 2 lr, the
+    moments within STATE_REL of each tensor's largest magnitude plus 1e-3
+    relative (``_close``'s form)."""
+    assert (got["step"], got["epoch"], got["count"]) == (want["step"], want["epoch"],
+                                                         want["count"])
+    for key in ("masters", "exp_avg", "exp_avg_sq"):
+        assert got[key].keys() == want[key].keys()
+        for n, w in want[key].items():
+            assert got[key][n].shape == w.shape, (key, n)
+    for n, w in want["masters"].items():
+        np.testing.assert_allclose(got["masters"][n].numpy(), w.numpy(), atol=2 * lr, rtol=0,
+                                   err_msg=n)
+    for key in ("exp_avg", "exp_avg_sq"):
+        _close({n: v.numpy() for n, v in got[key].items()},
+               {n: v.numpy() for n, v in want[key].items()}, rel=STATE_REL)
+
+
+def test_sigterm_under_fsdp_stops_both_with_one_gather(fsdp_trainer_runs):
+    """A SIGTERM on rank 1: both ranks stop at step 2 and assemble the final
+    checkpoint together, once."""
+    stopped = fsdp_trainer_runs["stopped"]
+    assert [r["steps"] for r in stopped] == [2, 2]
+    assert all(r["preempted"] for r in stopped)
+    assert [r["assembled"] for r in stopped] == [[2], [2]]
+    assert stopped[0]["checksums"] == stopped[1]["checksums"]
+
+
+def test_fsdp_checkpoint_matches_one_process(fsdp_trainer_runs):
+    """The state.pt assembled from the shards (the final save at step 2, the
+    periodic one at step 4 after a resume) holds the whole tensors a
+    one-process run holds, within the step's limits, and the split tensors'
+    masters and moments are at most 0.55 of the whole bytes on a rank."""
+    runs, lr = fsdp_trainer_runs, fsdp_trainer_runs["lr"]
+    _state_close(_native(runs["stopped"][0], 2), _native(runs["one"], 2), lr)
+    _state_close(_native(runs["fsdp_from_one"][0], 4), _native(runs["one"], 4), lr)
+    whole = runs["one"]["state_bytes"]
+    for r in runs["stopped"]:
+        assert r["state_bytes"] <= 0.55 * whole, (r["state_bytes"], whole)
+
+
+@pytest.mark.parametrize("run", ["one_from_fsdp", "fsdp_from_one"])
+def test_fsdp_checkpoints_resume_across_layouts(fsdp_trainer_runs, run):
+    """A checkpoint written under fsdp resumes in one process, and one
+    written in one process resumes under fsdp, with the losses of the
+    uninterrupted one-process run."""
+    want = fsdp_trainer_runs["one"]["losses"][2:]
+    outs = fsdp_trainer_runs[run]
+    for r in outs if isinstance(outs, list) else [outs]:
+        assert r["steps"] == 4
+        np.testing.assert_allclose(r["losses"], want, rtol=1e-5)
 
 
 def _steps(case, mesh, accum=1, runner=None):
@@ -245,13 +359,26 @@ def mesh_runs(case, ranks):
     return {axis: _steps(case, sizes, runner=ranks) for axis, sizes in MESHES.items()}
 
 
-@pytest.mark.parametrize("axis", list(MESHES))
-def test_mesh_step_matches_single_process(mesh_runs, single, axis):
-    """A 2-rank step equals a 1-process step on the concatenated batch with
-    the same draws: loss and gradients (averaged over the ranks, before the
-    clip), and the masters after each of 2 AdamW steps; the replicas equal
-    bit for bit."""
-    outs = mesh_runs[axis]
+@pytest.fixture(scope="module")
+def mesh_runs4(case):
+    pool = RankPool(4)
+    try:
+        return {axis: _steps(case, sizes, runner=pool) for axis, sizes in MESHES4.items()}
+    finally:
+        pool.close()
+
+
+def _mesh_run(request, axis):
+    return request.getfixturevalue("mesh_runs4" if axis in MESHES4 else "mesh_runs")[axis]
+
+
+@pytest.mark.parametrize("axis", [*MESHES, *MESHES4])
+def test_mesh_step_matches_single_process(request, single, axis):
+    """A 2-rank (4-rank) step equals a 1-process step on the concatenated
+    batch with the same draws: loss and gradients (averaged over the ranks,
+    before the clip), and the masters after each of 2 AdamW steps; the
+    replicas equal bit for bit."""
+    outs = _mesh_run(request, axis)
     for o in outs[1:]:
         assert o["checksums"] == outs[0]["checksums"]
         for a, b in zip(o["masters"], outs[0]["masters"]):
@@ -264,14 +391,59 @@ def test_mesh_step_matches_single_process(mesh_runs, single, axis):
         _masters_close(a, b)
 
 
-def test_accumulation_on_the_data_axis(case, ranks, single):
-    """Two micro-batches a step on data = 2: the gradients summed over the
-    micro-batches, averaged over the ranks once, one update."""
-    outs = _steps(case, MESHES["data"], accum=2, runner=ranks)
+def _accumulation(case, ranks, single, axis):
+    outs = _steps(case, MESHES[axis], accum=2, runner=ranks)
     assert outs[0]["checksums"] == outs[1]["checksums"]
+    assert outs[0]["working"] == outs[1]["working"]
     assert len(outs[0]["masters"]) == 1
     _masters_close(outs[0]["masters"][0], single[2]["masters"][0])
     np.testing.assert_allclose(outs[0]["losses"], single[2]["losses"], rtol=1e-5)
+
+
+def test_accumulation_on_the_data_axis(case, ranks, single):
+    """Two micro-batches a step on data = 2: the gradients summed over the
+    micro-batches, averaged over the ranks once, one update."""
+    _accumulation(case, ranks, single, "data")
+
+
+def test_accumulation_on_the_fsdp_axis(case, ranks, single):
+    """The same on fsdp = 2: the summed gradients reduce-scattered once, one
+    update of each rank's rows, one gather."""
+    _accumulation(case, ranks, single, "fsdp")
+
+
+@pytest.mark.parametrize("axis", [*MESHES, *MESHES4])
+def test_replicas_hold_equal_working_weights(request, axis):
+    """Every rank's working weights (the model's tensors) are equal bit for
+    bit after every step: under fsdp they come out of one all-gather."""
+    outs = _mesh_run(request, axis)
+    assert all(o["working"] == outs[0]["working"] for o in outs[1:])
+
+
+def test_fsdp_ranks_hold_their_rows_of_masters_and_moments(mesh_runs):
+    """Under fsdp = 2 each rank's masters and AdamW moments are its dim-0
+    chunks of the split tensors (the whole ones for the others), which take
+    at most 0.55 of the whole set's bytes; the zero moments before the first
+    update gather to the whole shapes."""
+    outs = mesh_runs["fsdp"]
+    masters = outs[0]["masters"][-1]
+    whole_bytes = 3 * sum(m.size * 4 for m in masters.values())
+    split = [n for n, r in outs[0]["own"]["rows"].items() if r is not None]
+    assert split, "no tensor split"
+    for r, o in enumerate(outs):
+        own = o["own"]
+        assert own["bytes"] <= 0.55 * whole_bytes, (own["bytes"], whole_bytes)
+        for n, rows in own["rows"].items():
+            want = slice(None) if rows is None else slice(*rows)
+            if rows is not None:
+                k = masters[n].shape[0] // 2
+                assert rows == (r * k, (r + 1) * k), n
+            assert np.array_equal(own["masters"][n], masters[n][want]), n
+            for key in ("exp_avg", "exp_avg_sq"):
+                assert np.array_equal(own[key][n], o["moments"][key][n][want]), (key, n)
+        assert o["moments"]["exp_avg"].keys() == masters.keys()
+        # a checkpoint before the first update gathers the whole shapes too
+        assert o["moments_before"] == {n: m.shape for n, m in masters.items()}
 
 
 def test_a_mesh_that_does_not_fit_the_world_raises(ranks):
@@ -279,10 +451,10 @@ def test_a_mesh_that_does_not_fit_the_world_raises(ranks):
     assert all("2 ranks cannot form a data=3 mesh" in m for m in msgs), msgs
 
 
-def test_fsdp_raises_naming_the_next_slice(tmp_path):
-    cfg = dict(_config(), output_dir=str(tmp_path), mesh={"data": 1, "fsdp": 2})
-    with pytest.raises(NotImplementedError, match="mesh.fsdp=2.*next slice"):
-        train("cam", cfg, iter([]), 1, device="cpu")
+def test_an_fsdp_mesh_that_does_not_fit_the_world_raises(ranks):
+    msgs = ranks.run("tests._torch_mesh:mesh_error", {"data": 1, "fsdp": 3, "sp": 1})
+    assert all("2 ranks cannot form a data=1 x fsdp=3 x sp=1 mesh (3 ranks)" in m
+               for m in msgs), msgs
 
 
 def test_mesh_without_a_process_group_raises(tmp_path):
@@ -291,11 +463,11 @@ def test_mesh_without_a_process_group_raises(tmp_path):
         train("cam", cfg, iter([]), 1, device="cpu")
 
 
-@pytest.mark.parametrize("axis", list(MESHES))
-def test_mesh_grads_match_jax(case, mesh_runs, axis):
+@pytest.mark.parametrize("axis", [*MESHES, *MESHES4])
+def test_mesh_grads_match_jax(request, case, axis):
     """The mesh's averaged gradients and loss against the JAX package's grads
     function on the concatenated batch (test_torch_train.py's tolerances)."""
-    got = mesh_runs[axis][0]
+    got = _mesh_run(request, axis)[0]
     jgrads, jmetrics = case["jax"].result()
     for k in ("loss", "sd_loss", "mask_loss"):
         np.testing.assert_allclose(got["metrics"][k], jmetrics[k], rtol=1e-5, err_msg=k)

@@ -16,8 +16,9 @@ batch 1, 2 frames at 64x64, on a fixture of 2 sequences x 48 frames at
   ``_export_optimizer_state`` keys it;
 - SIGTERM through ``python -m synfmc_tpu_torch.scripts.train`` exits 0 with
   ``'preempted': True`` and a checkpoint that resumes;
-- ``mesh.fsdp`` > 1, the one config key not ported, raises
-  NotImplementedError naming its key.
+- ``ckpt_device_snapshot``: ``auto`` and ``never`` take the host copy on the
+  CPU, ``always`` the device snapshot, and all write the same ``state.pt``;
+  another value raises before any run directory.
 
 No JAX program is compiled: the JAX side is numpy code and param shapes.
 """
@@ -254,10 +255,27 @@ def test_sigterm_stops_cleanly_and_resumes(fixture_kwargs, tmp_path):
     assert np.isfinite(resumed["loss_history"]).all()
 
 
-@pytest.mark.parametrize("key,value", [("mesh", {"data": 1, "fsdp": 2})])
-def test_unported_keys_raise_naming_the_key(fixture_kwargs, tmp_path, key, value):
-    cfg = tiny_config(fixture_kwargs, tmp_path, **{key: value})
-    with pytest.raises(NotImplementedError, match=key):
+@pytest.mark.parametrize("mode,path", [("auto", "host copy"), ("never", "host copy"),
+                                       ("always", "snapshot")])
+def test_ckpt_device_snapshot_writes_the_same_state(runs, fixture_kwargs, tmp_path, mode, path):
+    """Each mode's checkpoint path (the device cannot say on the CPU whether
+    a snapshot fits, so ``auto`` copies to the host), and the same state.pt
+    as run a's (``auto``, the default) at step 2."""
+    assert not trainers.snapshot_fits_on_device(1, device="cpu")
+    if mode == "auto":
+        out = runs["a"]
+    else:
+        out = train("cam", tiny_config(fixture_kwargs, tmp_path, prefetch_batches=2,
+                                       ckpt_device_snapshot=mode), max_steps=2, device="cpu")
+        np.testing.assert_array_equal(out["loss_history"], runs["a"]["loss_history"][:2])
+    assert [c["path"] for c in out["checkpoints"]][:1] == [path]
+    assert out["assembled"][0] == 2
+    assert_same_state(native(out["run_dir"], 2), native(runs["a"]["run_dir"], 2))
+
+
+def test_unknown_snapshot_mode_raises(fixture_kwargs, tmp_path):
+    cfg = tiny_config(fixture_kwargs, tmp_path, ckpt_device_snapshot="sometimes")
+    with pytest.raises(ValueError, match="ckpt_device_snapshot"):
         train("cam", cfg, max_steps=1, device="cpu")
     assert not os.listdir(tmp_path)  # before any run directory or model
 
